@@ -1,0 +1,62 @@
+"""The port stands alone: no JAX, no sift_tpu, and CUDA by default."""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sift_tpu_torch
+from sift_tpu_torch import detect_and_describe, detect_and_describe_batch, match_descriptors
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "sift_tpu_torch"
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_sift_tpu_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "sift_tpu"), f"{path.name} imports {mod}"
+
+
+def test_fresh_import_leaves_jax_out():
+    code = "import sys, sift_tpu_torch; print('jax' in sys.modules)"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
+def test_tf32_off():
+    assert sift_tpu_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    img = np.zeros((32, 48), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_and_describe_batch(img[None])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_and_describe(img)
+    d = np.zeros((4, 128), np.uint8)
+    v = np.ones(4, bool)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        match_descriptors(d, v, d, v)
