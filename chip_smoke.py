@@ -4,13 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sift_tpu_torch/csrc`` (one nvcc per
-source, in parallel), holds each kernel against its plain PyTorch version
-at the main path's shapes, drives the main path -- batched detect +
-describe + match of 640x480 frames, batch 16 (the CAVE-01 pair x8, the
+source, in parallel) and holds each kernel against its plain PyTorch
+version at the shapes its paths give it: kernel A (octave front), B (top-2
+matcher), C (octave blur) and D (one separable blur).  Then it drives the
+port's three routes on 640x480 frames (the CAVE-01 pair, the
 oracle-decoded pixels of tests/data), capacities extrema/kp/ori =
-6144/1536/2048 -- and checks the reference's answer on every pair: 677 and
-1067 keypoints and the identical 165-match set.  Then it times the sweep,
-each stage and each kernel.
+6144/1536/2048, float32:
+
+* the main path, the front route: batched detect + describe + match,
+  batch 16 (the pair x8), through kernels D (initial image), A and B;
+* the staged path ``detect_stages``, frame by frame, through C and D;
+* the non-front (XLA) route with ``use_octave_kernel=False``, batch 16,
+  through D for the initial image and every blur of the chain;
+
+and checks the reference's answer on each: 677 and 1067 keypoints and the
+identical 165-match set on every pair, and the same keypoints and
+descriptors as the main path.  Every launch counter is set to 0 just
+before a path and read just after.  Then it times the sweep, each stage,
+the staged path, the XLA route and each kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as the last
@@ -20,7 +31,9 @@ Needs a CUDA device; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -77,20 +90,36 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def front_bound(shapes, bsz, hks):
-    """Least time of the octave fronts of one sweep: each seed read once,
-    gauss/DoG/mask/counts written once; float32 operations per pixel from
-    the blur taps (mul + r*(add, mul, add) + div per pass, a subtraction
-    per DoG) and 26 max + 26 min + abs + compare per mask layer."""
+def blur_ops(hk) -> int:
+    """float32 operations per pixel of one separable blur: mul + r*(add,
+    mul, add) + div per pass, two passes."""
+    return 2 * (2 + 3 * (len(hk) - 1))
+
+
+def octave_bound(shapes, bsz, hks, mask: bool):
+    """Least time of one sweep's octaves, kernel A (``mask``) or C: each
+    seed read once, gauss/DoG (A: and mask/counts) written once; float32
+    operations per pixel from the blur taps, a subtraction per DoG (A: and
+    26 max + 26 min + abs + compare per mask layer)."""
     n = len(hks)
-    ops_px = sum(2 * (2 + 3 * (len(hk) - 1)) + 1 for hk in hks) + (n - 2) * 55
+    ops_px = sum(blur_ops(hk) + 1 for hk in hks) + (n - 2) * 55 * mask
     nbytes = ops = 0
     for h, w in shapes:
         nbm = -(-w // 128)
         px = bsz * h * w
-        nbytes += 4 * (px * (1 + (n + 1) + n) + bsz * (n - 2) * h * (nbm * 128 + nbm))
+        nbytes += 4 * px * (1 + (n + 1) + n)
+        if mask:
+            nbytes += 4 * bsz * (n - 2) * h * (nbm * 128 + nbm)
         ops += px * ops_px
     return nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+
+
+def blur_bound(shape, hk):
+    """Least time of one blur of a (B, H, W) float32 plane: the input read
+    once and the output written once (a blur fused into one pass; kernel
+    D's two passes move twice that)."""
+    px = math.prod(shape)
+    return 8 * px / HBM_BPS * 1e3, px * blur_ops(hk) / F32_OPS * 1e3
 
 
 def front_halo_cost(shapes, hks, tile_h=32, tile_w=128):
@@ -130,6 +159,33 @@ def bound(t_bytes, t_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def same(a, b, what: str) -> float:
+    """Fail unless ``a`` and ``b`` are equal in shape and bits; returns 0.0,
+    the max |a - b| of a check that passed."""
+    need(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if not bool((a == b).all()):
+        err = (a.double() - b.double()).abs().max().item()
+        raise SmokeError(f"{what}: max |diff| {err}")
+    return 0.0
+
+
+def library_blur(img, hk):
+    """The yardstick for kernel D, never called by the port: one blur as
+    replicate padding and a 1-D cuDNN convolution per axis, taps divided by
+    sum_w, in full float32 (sift_tpu_torch turns TF32 off at import)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sift_tpu_torch.config import half_kernel_weight_sum
+
+    r = len(hk) - 1
+    full = torch.tensor(hk[::-1] + hk[1:], dtype=torch.float64) / half_kernel_weight_sum(hk)
+    full = full.to(device=img.device, dtype=torch.float32)
+    x = F.conv2d(F.pad(img[:, None], (r, r, 0, 0), mode="replicate"), full.view(1, 1, 1, -1))
+    x = F.conv2d(F.pad(x, (0, 0, r, r), mode="replicate"), full.view(1, 1, -1, 1))
+    return x[:, 0]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -146,21 +202,37 @@ def main() -> int:
         return 2
     need("jax" not in sys.modules, "the port imported jax")
     from sift_tpu_torch import SiftConfig, match_descriptors
+    from sift_tpu_torch.config import gaussian_half_kernel
     from sift_tpu_torch.models import sift as S
     from sift_tpu_torch.models.detect import refine_cascade_caps
     from sift_tpu_torch.models.match import ratio_accept
     from sift_tpu_torch.models.pyramid import blur_half_kernels, compute_initial_image
+    from sift_tpu_torch.ops.blur import separable_blur
+    from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
+    from sift_tpu_torch.ops.color import to_grayscale
     from sift_tpu_torch.ops.gather import StackSpace
+    from sift_tpu_torch.ops.octave_blur import octave_blur, octave_blur_plain
     from sift_tpu_torch.ops.octave_front import octave_front, octave_front_plain
-    from sift_tpu_torch.ops.resize import downsample_nearest_x2
+    from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
     from sift_tpu_torch.ops.top2 import top2, top2_plain
+    from sift_tpu_torch.utils.keypoints import FIELDS
 
     dev = torch.device("cuda")
     smi = smi_line()
+    counted = dict(octave_front=octave_front, top2=top2, octave_blur=octave_blur,
+                   blur_pass=separable_blur_kernel)
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counted.items()}
 
     # -- phase 1: device and kernel build ---------------------------------
     t0 = time.perf_counter()
-    logs = kernels.build(["octave_front", "top2"])
+    logs = kernels.build(["octave_front", "top2", "blur_pass"])
     build_s = time.perf_counter() - t0
     # ptxas's register / spill report of each kernel (empty when cached).
     ptxas = {k: [ln.split(":", 1)[-1].strip() for ln in v.splitlines()
@@ -177,6 +249,7 @@ def main() -> int:
     o2 = np.load(DATA / "oracle_cave01.npz")
     frames = np.stack([o1["input"], o2["input"]] * (BATCH // 2))
     imgs = S.as_batch(frames, cfg, dev)
+    octaves = S.octaves_for(imgs, cfg)
     hks = blur_half_kernels(cfg)
     thr = cfg.extremum_threshold()
 
@@ -184,7 +257,7 @@ def main() -> int:
     seeds = [compute_initial_image(imgs, cfg).contiguous()]
     shapes = []
     worst = 0.0
-    for o in range(S.octaves_for(imgs, cfg)):
+    for o in range(octaves):
         seed = seeds[-1]
         shapes.append(tuple(seed.shape[1:]))
         ref = octave_front_plain(seed, hks, thr)
@@ -203,7 +276,7 @@ def main() -> int:
         del ref, got
     seeds = seeds[: len(shapes)]
     read_x, work_x = front_halo_cost(shapes, hks)
-    a_times = front_bound(shapes, BATCH, hks)
+    a_times = octave_bound(shapes, BATCH, hks, mask=True)
     emit(dict(phase="kernel_a_vs_plain", shapes_hw=shapes, batch=BATCH,
               bit_equal=True, max_abs_err=worst, seed_read_factor=read_x,
               blur_work_factor=work_x, bytes_ms=a_times[0], ops_ms=a_times[1]))
@@ -215,7 +288,42 @@ def main() -> int:
     a_plain_ms = cuda_ms(chain(octave_front_plain), 3)
     a_bound, a_by = bound(*a_times)
 
-    # -- phase 3: kernel B vs its plain version, 8 pairs at 2048 x 2048 -----
+    # -- phase 3: kernel C vs its plain version and kernel A, and kernel D
+    # vs its plain version on every blur of the chain, every octave shape --
+    c_err = d_err = 0.0
+    d_checked = []
+    for o, seed in enumerate(seeds):
+        ref = octave_blur_plain(seed, hks)
+        got = octave_blur(seed, hks)
+        front = octave_front(seed, hks, thr)[:2]
+        torch.cuda.synchronize()
+        for name, a, b, f in zip(("gauss", "dog"), got, ref, front):
+            c_err = max(c_err, same(a, b, f"kernel C octave {o} {name} vs plain"))
+            same(a, f, f"kernel C octave {o} {name} vs kernel A")
+        for k, hk in enumerate(hks):
+            layer = ref[0][:, k].contiguous()
+            d_err = max(d_err, same(separable_blur_kernel(layer, hk), separable_blur(layer, hk),
+                                    f"kernel D octave {o} blur {k + 1} vs plain"))
+            d_checked.append(dict(octave=o, blur=k + 1, taps=len(hk)))
+        del ref, got, front
+    c_times = octave_bound(shapes, BATCH, hks, mask=False)
+    emit(dict(phase="kernel_c_vs_plain", shapes_hw=shapes, batch=BATCH,
+              bit_equal_to_plain=True, bit_equal_to_kernel_a=True,
+              max_abs_err=c_err, bytes_ms=c_times[0], ops_ms=c_times[1]))
+
+    # The initial image's blur: the doubled grayscale frames, pre-blur sigma
+    # sqrt(1.6^2 - 1) (models/pyramid.compute_initial_image).
+    gray = upsample_bilinear(to_grayscale(imgs).to(cfg.dtype), 2, 2).contiguous()
+    pre = gaussian_half_kernel(math.sqrt(cfg.init_sigma * cfg.init_sigma - 1))
+    initial = separable_blur_kernel(gray, pre)
+    d_err = max(d_err, same(initial, separable_blur(gray, pre), "kernel D initial vs plain"))
+    same(initial, seeds[0], "kernel D initial vs the main path's seed")
+    d_times = blur_bound(tuple(gray.shape), pre)
+    emit(dict(phase="kernel_d_vs_plain", initial_shape=list(gray.shape),
+              initial_taps=len(pre), chain_blurs=d_checked, bit_equal=True,
+              max_abs_err=d_err, bytes_ms=d_times[0], ops_ms=d_times[1]))
+
+    # -- phase 4: kernel B vs its plain version, 8 pairs at 2048 x 2048 -----
     g = torch.Generator().manual_seed(0)
     pairs, n = BATCH // 2, cfg.ori_cap
     d1 = torch.randint(0, 256, (pairs, n, 128), generator=g, dtype=torch.uint8)
@@ -245,33 +353,6 @@ def main() -> int:
     b_bound, b_by = bound(*b_times)
     del d1, d2, v2, f1, f2
 
-    # -- phase 4: the main path, counted -----------------------------------
-    def sweep():
-        kp = S.detect_and_describe_batch(imgs, cfg, device=dev)
-        m = match_descriptors(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2],
-                              kp.valid[1::2], cfg.ratio_threshold, device=dev)
-        return kp, m
-
-    octave_front.launches = top2.launches = 0
-    kp, counts = S.detect_and_describe_batch(imgs, cfg, return_counts=True, device=dev)
-    idx, acc, _, _ = match_descriptors(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2],
-                                       kp.valid[1::2], cfg.ratio_threshold, device=dev)
-    torch.cuda.synchronize()
-    launches = dict(octave_front=octave_front.launches, top2=top2.launches)
-    need(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
-
-    nkp = kp.valid.sum(1).tolist()
-    need(nkp == list(WANT_KP) * (BATCH // 2), f"keypoint counts {nkp}")
-    caps = dict(extrema=cfg.extrema_cap, refined=cfg.kp_cap, oriented=cfg.ori_cap)
-    for k, cap in caps.items():
-        need(int(counts[k].max()) <= cap, f"{k} count {counts[k].tolist()} > cap {cap}")
-    for ph, (cap, _) in enumerate(refine_cascade_caps(cfg, cfg.extrema_cap)):
-        need(int(counts["refine_active"][:, ph].max()) <= cap, "Newton phase overflow")
-    need(int(counts["ori_slots_max"]) <= cfg.ori_cand_slots, "orientation slots overflow")
-    for k, v in kp.to_numpy().items():
-        if v.dtype.kind == "f":
-            need(np.isfinite(v).all(), f"non-finite {k}")
-
     # Reference match set: the oracle's own descriptors through the plain matcher.
     od1 = torch.from_numpy(o1["final.desc"])[None]
     od2 = torch.from_numpy(o2["final.desc"])[None]
@@ -279,23 +360,134 @@ def main() -> int:
     racc = ratio_accept(rb, rs, torch.ones(od1.shape[:2], dtype=torch.bool))[0]
     want = {(i, int(ri[0, i])) for i in np.nonzero(racc.numpy())[0]}
     need(len(want) == WANT_MATCHES, f"oracle match set has {len(want)}")
-    acc_c, idx_c = acc.cpu().numpy(), idx.cpu().numpy()
-    for p in range(BATCH // 2):
-        got_set = {(i, int(idx_c[p, i])) for i in np.nonzero(acc_c[p])[0]}
-        need(got_set == want, f"pair {p}: {len(got_set)} matches, "
-             f"{len(got_set ^ want)} differ from the oracle's 165-match set")
+
+    def check_matches(desc1, valid1, desc2, valid2, what):
+        """Every pair's ratio-test matches (kernel B) are the oracle's set."""
+        idx, acc, _, _ = match_descriptors(desc1, valid1, desc2, valid2,
+                                           cfg.ratio_threshold, device=dev)
+        acc_c, idx_c = acc.cpu().numpy(), idx.cpu().numpy()
+        for p in range(acc_c.shape[0]):
+            got_set = {(i, int(idx_c[p, i])) for i in np.nonzero(acc_c[p])[0]}
+            need(got_set == want, f"{what} pair {p}: {len(got_set)} matches, "
+                 f"{len(got_set ^ want)} differ from the oracle's 165-match set")
+
+    def check_batch(kp, counts, what):
+        nkp = kp.valid.sum(1).tolist()
+        need(nkp == list(WANT_KP) * (BATCH // 2), f"{what}: keypoint counts {nkp}")
+        caps = dict(extrema=cfg.extrema_cap, refined=cfg.kp_cap, oriented=cfg.ori_cap)
+        for k, cap in caps.items():
+            need(int(counts[k].max()) <= cap, f"{what}: {k} count {counts[k].tolist()} > {cap}")
+        for ph, (cap, _) in enumerate(refine_cascade_caps(cfg, cfg.extrema_cap)):
+            need(int(counts["refine_active"][:, ph].max()) <= cap, f"{what}: Newton overflow")
+        need(int(counts["ori_slots_max"]) <= cfg.ori_cand_slots, f"{what}: ori slots overflow")
+        for k, v in kp.to_numpy().items():
+            if v.dtype.kind == "f":
+                need(np.isfinite(v).all(), f"{what}: non-finite {k}")
+        check_matches(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2], kp.valid[1::2], what)
+        return nkp
+
+    # -- phase 5: the main path (the front route), counted -------------------
+    zero_counts()
+    kp, counts = S.detect_and_describe_batch(imgs, cfg, return_counts=True, device=dev)
+    match_descriptors(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2], kp.valid[1::2],
+                      cfg.ratio_threshold, device=dev)
+    launches = {"main": read_counts()}
+    for k in ("octave_front", "top2", "blur_pass"):
+        need(launches["main"][k] > 0, f"main path: {k} was not launched: {launches['main']}")
+    nkp = check_batch(kp, counts, "main path")
     emit(dict(phase="path", keypoints=nkp[:2], matches=WANT_MATCHES,
-              same_match_set=True, launches=launches,
+              same_match_set=True, launches=launches["main"],
               counts={k: v.tolist() for k, v in counts.items()}))
 
-    # -- phase 5: timing of the sweep and its stages ------------------------
-    sweep()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_SWEEPS):
-        sweep()
-    torch.cuda.synchronize()
-    sweep_s = (time.perf_counter() - t0) / TIMED_SWEEPS
+    # -- phase 6: the staged path, frame by frame, counted -------------------
+    def staged_overflow(st, c):
+        cnt, out = st["counts"], []
+        for o in range(octaves):
+            for k, cap in (("extrema", c.extrema_cap_for_octave(o)),
+                           ("refined", c.kp_cap_for_octave(o)),
+                           ("oriented", 2 * c.kp_cap_for_octave(o))):
+                if int(cnt[k][o]) > cap:
+                    out.append(f"{k}[{o}] {int(cnt[k][o])} > {cap}")
+        if int(cnt["ori_slots_max"].max()) > c.ori_cand_slots:
+            out.append(f"ori_slots_max {int(cnt['ori_slots_max'].max())} > {c.ori_cand_slots}")
+        if int(cnt["final"]) > c.ori_cap:
+            out.append(f"final {int(cnt['final'])} > {c.ori_cap}")
+        return out
+
+    scfg, raised = cfg, []
+    while True:
+        zero_counts()
+        staged = [S.detect_stages(o["input"], scfg, octaves, device=dev) for o in (o1, o2)]
+        launches["staged"] = read_counts()
+        over = [x for st in staged for x in staged_overflow(st, scfg)]
+        if not over:
+            break
+        need(len(raised) < 3, f"staged path: capacities still clipped: {over}")
+        scfg = dataclasses.replace(
+            scfg, extrema_cap=2 * scfg.extrema_cap, kp_cap=2 * scfg.kp_cap,
+            ori_cap=2 * scfg.ori_cap, ori_cand_slots=2 * scfg.ori_cand_slots)
+        raised.append(dict(overflow=over, raised_to=dict(
+            extrema_cap=scfg.extrema_cap, kp_cap=scfg.kp_cap, ori_cap=scfg.ori_cap,
+            ori_cand_slots=scfg.ori_cand_slots)))
+    want_launch = dict(octave_blur=octaves * 2, blur_pass=2 * 2)
+    for k, v in want_launch.items():
+        need(launches["staged"][k] == v, f"staged path: {k} {launches['staged']} != {v}")
+    for i, st in enumerate(staged):
+        fin = st["final"]
+        need(int(fin.valid.sum()) == WANT_KP[i], f"staged frame {i}: {int(fin.valid.sum())} kp")
+        for f in ("x", "y", "size", "pori", "octave", "layer", "desc"):
+            same(getattr(fin, f)[fin.valid], getattr(kp, f)[i][kp.valid[i]],
+                 f"staged frame {i} {f} vs the main path")
+    fa, fb = staged[0]["final"], staged[1]["final"]
+    check_matches(fa.desc[None], fa.valid[None], fb.desc[None], fb.valid[None], "staged")
+    emit(dict(phase="staged_path", frames=2, octaves=octaves,
+              keypoints=[int(st["final"].valid.sum()) for st in staged],
+              matches=WANT_MATCHES, same_match_set=True, equal_to_main_path=True,
+              launches=launches["staged"], capacities_raised=raised,
+              counts=[{k: v.tolist() for k, v in st["counts"].items()} for st in staged]))
+    del staged
+
+    # -- phase 7: the non-front (XLA) route, batch 16, counted ---------------
+    xcfg = dataclasses.replace(cfg, use_octave_kernel=False)
+    need(not S.use_front(xcfg, dev), "use_octave_kernel=False kept the front route")
+    zero_counts()
+    kx, cx = S.detect_and_describe_batch(imgs, xcfg, return_counts=True, device=dev)
+    launches["xla_route"] = read_counts()
+    n_blurs = 1 + len(hks) * octaves
+    need(launches["xla_route"]["blur_pass"] == 2 * n_blurs
+         and launches["xla_route"]["octave_blur"] == 0
+         and launches["xla_route"]["octave_front"] == 0,
+         f"XLA route launches {launches['xla_route']}, want blur_pass {2 * n_blurs} only")
+    check_batch(kx, cx, "XLA route")
+    for f in FIELDS:
+        same(getattr(kx, f), getattr(kp, f), f"XLA route {f} vs the main path")
+    emit(dict(phase="xla_route", keypoints=kx.valid.sum(1).tolist()[:2],
+              matches=WANT_MATCHES, same_match_set=True, equal_to_main_path=True,
+              launches=launches["xla_route"],
+              counts={k: v.tolist() for k, v in cx.items()}))
+    del kx, cx
+
+    # -- phase 8: timing of the sweep, its stages, the other routes and the
+    # kernels C and D -----------------------------------------------------
+    def sweep(c=cfg):
+        out = S.detect_and_describe_batch(imgs, c, device=dev)
+        m = match_descriptors(out.desc[0::2], out.valid[0::2], out.desc[1::2],
+                              out.valid[1::2], cfg.ratio_threshold, device=dev)
+        return out, m
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    sweep_ms = host_ms(sweep, TIMED_SWEEPS)
+    xla_ms = host_ms(lambda: sweep(xcfg), TIMED_SWEEPS)
+    staged_ms = host_ms(lambda: [S.detect_stages(o["input"], scfg, octaves, device=dev)
+                                 for o in (o1, o2)], 2) / 2
 
     stages = {}
 
@@ -320,22 +512,52 @@ def main() -> int:
         timed("match", lambda: match_descriptors(
             fin.desc[0::2], fin.valid[0::2], fin.desc[1::2], fin.valid[1::2],
             cfg.ratio_threshold, device=dev))
-    emit(dict(phase="timing", batch=BATCH, frames_per_s=BATCH / sweep_s,
-              sweep_ms=sweep_s * 1e3, stage_ms=stages,
+    emit(dict(phase="timing", batch=BATCH, frames_per_s=BATCH / sweep_ms * 1e3,
+              sweep_ms=sweep_ms, stage_ms=stages, xla_route_sweep_ms=xla_ms,
+              staged_ms_per_frame=staged_ms,
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+
+    c_ms = cuda_ms(lambda: [octave_blur(s, hks) for s in seeds], KERNEL_REPS)
+    c_plain_ms = cuda_ms(lambda: [octave_blur_plain(s, hks) for s in seeds], 3)
+    c_bound, c_by = bound(*c_times)
+    d_ms = cuda_ms(lambda: separable_blur_kernel(gray, pre), KERNEL_REPS)
+    d_plain_ms = cuda_ms(lambda: separable_blur(gray, pre), 5)
+    need(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    d_lib_err = (library_blur(gray, pre) - initial).abs().max().item()
+    d_lib_ms = cuda_ms(lambda: library_blur(gray, pre), 5)
+    d_bound, d_by = bound(*d_times)
+    emit(dict(phase="kernel_timing", octave_blur_ms=c_ms, octave_blur_plain_ms=c_plain_ms,
+              blur_pass_ms=d_ms, blur_pass_plain_ms=d_plain_ms, library_blur_ms=d_lib_ms,
+              library_blur_max_abs_err=d_lib_err))
+
+    def by_path(name):
+        return {path: c[name] for path, c in launches.items()}
 
     rows = [
         dict(name="octave_front", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:240",
-             launches=launches["octave_front"], max_abs_err=worst,
+             launches=launches["main"]["octave_front"], max_abs_err=worst,
              ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_by,
-             library_ms=None),
+             library_ms=None, launches_by_path=by_path("octave_front")),
         dict(name="top2", route="cuda", source="sift_tpu_torch/csrc/top2.cu",
              replaces="sift_tpu/ops/pallas_match.py:90",
-             launches=launches["top2"], max_abs_err=float(b_err),
+             launches=launches["main"]["top2"], max_abs_err=float(b_err),
              ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
-             library_ms=b_lib_ms),
+             library_ms=b_lib_ms, launches_by_path=by_path("top2")),
+        # Kernel C is not on the front route: its launches are the staged
+        # path's (two frames).  No single PyTorch call computes an octave.
+        dict(name="octave_blur", route="cuda",
+             source="sift_tpu_torch/csrc/octave_front.cu",
+             replaces="sift_tpu/ops/pallas_pyramid.py:675",
+             launches=launches["staged"]["octave_blur"], max_abs_err=c_err,
+             ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bound_by=c_by,
+             library_ms=None, launches_by_path=by_path("octave_blur")),
+        dict(name="blur_pass", route="cuda", source="sift_tpu_torch/csrc/blur_pass.cu",
+             replaces="sift_tpu/ops/pallas_blur.py:121",
+             launches=launches["main"]["blur_pass"], max_abs_err=d_err,
+             ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound, bound_by=d_by,
+             library_ms=d_lib_ms, launches_by_path=by_path("blur_pass")),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -25,6 +25,7 @@ DESC_MAGNITUDE_THR = 0.2
 INT_DESCR_FCTR = 512.0
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_RENAMED = {"use_pallas_blur": "use_blur_kernel", "use_pallas_pyramid": "use_octave_kernel"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,15 +65,32 @@ class SiftConfig:
     # profile held against the C++ reference.
     dtype: torch.dtype = torch.float32
 
+    # Route knobs, counterparts of the JAX package's use_pallas_blur and
+    # use_pallas_pyramid.  None: auto, True: the kernel, False: the plain
+    # chain.  Auto resolves on for float32 tensors on CUDA (``kernel_on``).
+    # The JAX package leaves its blur kernel off by default only because of
+    # a TPU compile-time cost; nvcc builds these kernels once per run.
+    # use_blur_kernel: one blur through kernel D (ops/blur_pass.py), which
+    # covers the initial image and, on the non-front route without the
+    # octave kernel, every layer of the chain.
+    use_blur_kernel: bool | None = None
+    # use_octave_kernel: a whole octave through kernel C (ops/octave_blur.py)
+    # in build_pyramids; with window_size 3 in float32 it also picks the
+    # batch route (models/sift.use_front).
+    use_octave_kernel: bool | None = None
+
     @staticmethod
     def from_reference(fields: dict) -> "SiftConfig":
         """Build a config from ``dataclasses.asdict`` of the JAX SiftConfig.
 
         ``dtype`` may be given by name (``"float32"``/``"float64"``) or as
-        any object whose ``str`` is such a name (a numpy dtype); fields the
-        port does not have (the JAX package's backend switches) are dropped.
+        any object whose ``str`` is such a name (a numpy dtype); the JAX
+        package's ``use_pallas_blur`` / ``use_pallas_pyramid`` become
+        ``use_blur_kernel`` / ``use_octave_kernel``; other fields the port
+        does not have are dropped.
         """
         names = {f.name for f in dataclasses.fields(SiftConfig)}
+        fields = {_RENAMED.get(k, k): v for k, v in fields.items()}
         kw = {k: v for k, v in fields.items() if k in names}
         if "dtype" in kw and not isinstance(kw["dtype"], torch.dtype):
             dt = kw["dtype"]
@@ -96,11 +114,28 @@ class SiftConfig:
         min_size = min(width, height)
         return int(math.floor(math.log2(min_size // 3)))
 
+    def extrema_cap_for_octave(self, octave: int) -> int:
+        """The staged path's per-octave capacities: octave 0's, halved per
+        octave, with a floor."""
+        return max(self.extrema_cap >> octave, 256)
+
+    def kp_cap_for_octave(self, octave: int) -> int:
+        return max(self.kp_cap >> octave, 128)
+
     def extremum_threshold(self) -> float:
         """Pre-filter threshold (src/sift.cpp:305-307, "OpenCV formula")."""
         return math.floor(
             0.5 * self.contrast_threshold / float(self.intervals) * 255.0
         )
+
+
+def kernel_on(knob: bool | None, dtype: torch.dtype, device) -> bool:
+    """Resolve a route knob for data of ``dtype`` on ``device``: the kernels
+    take float32 only (like the JAX package's fits predicates); auto means
+    "on the card"."""
+    if dtype != torch.float32 or knob is False:
+        return False
+    return knob is True or torch.device(device).type == "cuda"
 
 
 def gaussian_half_kernel(sigma: float) -> list[float]:

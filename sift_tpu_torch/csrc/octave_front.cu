@@ -1,7 +1,8 @@
-// Kernel A: the octave front of the SIFT pyramid, for Hopper (sm_90a).
+// Kernels A and C: the octave of the SIFT pyramid, for Hopper (sm_90a).
 //
-// Replaces the TPU kernels sift_tpu/ops/pallas_pyramid.py::fused_octave_front
-// (:240, body _octave_front_kernel :148-200) and the value outputs of
+// Kernel A (octave_front_launch) replaces the TPU kernels
+// sift_tpu/ops/pallas_pyramid.py::fused_octave_front (:240, body
+// _octave_front_kernel :148-200) and the value outputs of
 // fused_octave_front_twin (:513, body _octave_front_twin_kernel :346-458).
 // Per octave, from the seed image (B, H, W) f32 it writes
 //   gauss  (B, n+1, H, W)   the seed and n chained separable blurs
@@ -13,29 +14,39 @@
 // The TPU twin-row / cube-packed layout emission is not ported: the port's
 // gathers read these plain stacks.
 //
+// Kernel C (octave_blur_launch) replaces
+// sift_tpu/ops/pallas_pyramid.py::fused_octave_blur (:675, body
+// _octave_kernel :105-122): the same kernel compiled without the mask, so
+// it writes only gauss and dog, and its halo drops the mask's +1 ring.
+// The TPU kernel replicates the border rows after each vertical pass
+// (_fix_borders); here every tap index is clamped to the layer's true
+// border instead, which reads the same values.
+//
 // Arithmetic is the plain version's (sift_tpu_torch/ops/blur.py), one IEEE
 // operation at a time: acc = x*k0; acc = acc + k_u*(x[+u] + x[-u]);
 // acc = acc / sum_w; horizontal then vertical, each tap index clamped to the
 // current layer's true image border.  Built with -fmad=false and the
 // explicit _rn intrinsics, so gauss and DoG are bit-equal to the plain
-// version, and mask and counts (exact functions of the DoGs) equal too.
+// version (and kernels A and C to each other), and mask and counts (exact
+// functions of the DoGs) equal too.
 //
 // Design: one CTA per (128-column tile, 32-row strip, image).  The CTA loads
-// the seed tile plus a halo of (sum of blur radii + 1) rows and columns
-// into shared memory and runs the whole blur chain there, shrinking the
-// computed region by each blur's radius; the +1 keeps the last DoG valid
-// on the tile's +-1 ring that the 3x3x3 window reads.  Three DoG layers
-// live in a ring buffer for the mask.  128-column tiles own whole popcount
-// blocks, so counts need no global atomics.
+// the seed tile plus a halo of (sum of blur radii, +1 for A) rows and
+// columns into shared memory and runs the whole blur chain there, shrinking
+// the computed region by each blur's radius; A's +1 keeps the last DoG
+// valid on the tile's +-1 ring that the 3x3x3 window reads.  Three DoG
+// layers live in a ring buffer for A's mask.  128-column tiles own whole
+// popcount blocks, so counts need no global atomics.
 //
-// What bounds it: the mandatory traffic is one seed read and (n+1)+n+(n-2)
-// output planes written, ~15 bytes per pixel of work at n = 5: memory-bound
-// in principle.  In this first version the halo is recomputed per tile
-// (a 196x100 input region for a 128x32 tile at the default sigmas), and a
-// CTA needs ~210 KB of shared memory, so one CTA of 8 warps runs per SM;
-// the kernel is latency/occupancy-bound on shared-memory arithmetic rather
-// than on DRAM bandwidth.  Cheaper halos (larger tiles with a rolling row
-// window) are later work.
+// What bounds them: the mandatory traffic is one seed read and (n+1)+n
+// output planes (A: + (n-2) mask planes) written, 48 (A: ~60) bytes per
+// pixel at n = 5: memory-bound in principle.  In this first version the
+// halo is recomputed per tile (a 196x100 input region for a 128x32 tile at
+// the default sigmas), and a CTA needs ~150 KB (C) or ~210 KB (A) of shared
+// memory, so one CTA of 8 warps runs per SM; the kernels are
+// latency/occupancy-bound on shared-memory arithmetic rather than on DRAM
+// bandwidth.  Cheaper halos (taller strips for C, which has no ring; a
+// rolling row window) are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,10 +72,12 @@ struct FrontParams {
   int rows;   // rows of the two blur buffers
 };
 
+// kMask: kernel A (mask + counts); without it, kernel C (gauss + dog only).
+template <bool kMask>
 __global__ void __launch_bounds__(NTHREADS)
-octave_front_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
-                    float* __restrict__ dog, float* __restrict__ mask,
-                    int* __restrict__ counts, const FrontParams p) {
+octave_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
+              float* __restrict__ dog, float* __restrict__ mask,
+              int* __restrict__ counts, const FrontParams p) {
   extern __shared__ float smem[];
   float* G = smem;                    // current gauss layer
   float* T = G + p.rows * p.pitch;    // horizontal-pass result
@@ -83,7 +96,7 @@ octave_front_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
   float* db = dog + (size_t)b * n * plane;
   const int tid = threadIdx.x;
 
-  if (tid < TILE_H) cnt[tid] = 0;
+  if (kMask && tid < TILE_H) cnt[tid] = 0;
 
   // Seed region: the tile plus the full halo, clipped to the image.
   int h = p.halo;
@@ -150,7 +163,7 @@ octave_front_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
           gb[(size_t)(k + 1) * plane + (size_t)y * W + x] = g;
           db[(size_t)k * plane + (size_t)y * W + x] = d;
         }
-        if (y >= y0 - 1 && y <= y1 && x >= x0 - 1 && x <= x1)
+        if (kMask && y >= y0 - 1 && y <= y1 && x >= x0 - 1 && x <= x1)
           rk[(y - y0 + 1) * RING_W + (x - x0 + 1)] = d;
       }
     }
@@ -158,7 +171,7 @@ octave_front_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
     h = hn;
 
     // Extremum mask of interior DoG layer z = k - 1 once dog[k] exists.
-    if (k >= 2) {
+    if (kMask && k >= 2) {
       const int z = k - 1;
       const float* dm = ring + ((k - 2) % 3) * RING_H * RING_W;
       const float* dc = ring + ((k - 1) % 3) * RING_H * RING_W;
@@ -201,19 +214,19 @@ octave_front_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
   }
 }
 
-// Host entry: builds the parameter block from host arrays and launches on
-// ``stream``.  taps: n * MAX_TAPS floats (row k = layer k's one-sided taps),
-// ntaps: n ints, sum_w: n floats.  Returns cudaGetLastError().
-extern "C" int octave_front_launch(const float* seed, float* gauss, float* dog,
-                                   float* mask, int* counts, int B, int H,
-                                   int W, int n, const float* taps,
-                                   const int* ntaps, const float* sum_w,
-                                   float thr, void* stream) {
-  if (n < 3 || n > MAX_LAYERS || B < 1 || H < 1 || W < 1)
+// Builds the parameter block from host arrays and launches on ``stream``.
+// taps: n * MAX_TAPS floats (row k = layer k's one-sided taps), ntaps: n
+// ints, sum_w: n floats.  Returns cudaGetLastError().
+template <bool kMask>
+static int launch(const float* seed, float* gauss, float* dog, float* mask,
+                  int* counts, int B, int H, int W, int n, const float* taps,
+                  const int* ntaps, const float* sum_w, float thr,
+                  void* stream) {
+  if (n < (kMask ? 3 : 1) || n > MAX_LAYERS || B < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   FrontParams p;
   memset(&p, 0, sizeof(p));
-  int halo = 1;
+  int halo = kMask ? 1 : 0;
   for (int k = 0; k < n; ++k) {
     if (ntaps[k] < 1 || ntaps[k] > MAX_TAPS) return (int)cudaErrorInvalidValue;
     p.ntaps[k] = ntaps[k];
@@ -230,16 +243,34 @@ extern "C" int octave_front_launch(const float* seed, float* gauss, float* dog,
   p.thr = thr;
   p.pitch = TILE_W + 2 * halo;
   p.rows = TILE_H + 2 * halo;
-  const size_t smem = sizeof(float) * (2 * (size_t)p.rows * p.pitch +
-                                       3 * RING_H * RING_W) +
-                      sizeof(int) * TILE_H;
+  size_t smem = sizeof(float) * 2 * (size_t)p.rows * p.pitch;
+  if (kMask) smem += sizeof(float) * 3 * RING_H * RING_W + sizeof(int) * TILE_H;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      octave_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      octave_kernel<kMask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(p.nbm, (H + TILE_H - 1) / TILE_H, B);
-  octave_front_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  octave_kernel<kMask><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       seed, gauss, dog, mask, counts, p);
   return (int)cudaGetLastError();
+}
+
+// Kernel A: gauss, dog, mask, counts.
+extern "C" int octave_front_launch(const float* seed, float* gauss, float* dog,
+                                   float* mask, int* counts, int B, int H,
+                                   int W, int n, const float* taps,
+                                   const int* ntaps, const float* sum_w,
+                                   float thr, void* stream) {
+  return launch<true>(seed, gauss, dog, mask, counts, B, H, W, n, taps, ntaps,
+                      sum_w, thr, stream);
+}
+
+// Kernel C: gauss and dog only.
+extern "C" int octave_blur_launch(const float* seed, float* gauss, float* dog,
+                                  int B, int H, int W, int n,
+                                  const float* taps, const int* ntaps,
+                                  const float* sum_w, void* stream) {
+  return launch<false>(seed, gauss, dog, nullptr, nullptr, B, H, W, n, taps,
+                       ntaps, sum_w, 0.0f, stream);
 }

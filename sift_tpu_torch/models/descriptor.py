@@ -25,7 +25,7 @@ from sift_tpu_torch.config import (
     SiftConfig,
 )
 from sift_tpu_torch.models.orient import max_size_octave
-from sift_tpu_torch.ops.gather import StackSpace, gather_patches, lut
+from sift_tpu_torch.ops.gather import StackSpace, gather_patches, lut, padded_chunks
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -120,9 +120,11 @@ def hist_to_desc(hist: torch.Tensor) -> torch.Tensor:
     return val.clamp_max(255).to(torch.uint8)
 
 
-def compute_descriptors_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig) -> torch.Tensor:
+def compute_descriptors_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig,
+                            octave_of_volume: tuple[int, ...] | None = None) -> torch.Tensor:
     """Descriptors of a (B, n) post-dedup keypoint buffer in input-image
-    coordinates: (B, n, 128) uint8, zero on invalid lanes."""
+    coordinates: (B, n, 128) uint8, zero on invalid lanes.
+    ``octave_of_volume``: as in ``orient_all``."""
     bsz, n = kp.x.shape
     dtype = kp.x.dtype
     dev = kp.x.device
@@ -135,10 +137,11 @@ def compute_descriptors_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig) -> t
     kx, ky, ksize, kpori, koct, klayer = (
         a.reshape(-1)[lanes] for a in (kp.x, kp.y, kp.size, kp.pori, kp.octave, kp.layer)
     )
-    oct_sel = koct.clamp(0, octaves - 1)
+    oov = octave_of_volume or tuple(range(octaves))
+    oct_sel = (koct - oov[0]).clamp(0, octaves - 1)
     # src/sift.cpp:620-625: coordinates were already halved when doubling.
     shift = 1 if cfg.double_image_size else 0
-    pow_denom = lut([1.0 / math.pow(2, o - shift) for o in range(octaves)], oct_sel, dtype)
+    pow_denom = lut([1.0 / math.pow(2, o - shift) for o in oov], oct_sel, dtype)
     x = (kx * pow_denom).to(torch.int64)  # C int truncation (src/sift.cpp:623)
     y = (ky * pow_denom).to(torch.int64)
     size = ksize * pow_denom
@@ -157,12 +160,21 @@ def compute_descriptors_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig) -> t
     cos_a, sin_a = torch.cos(kpori), torch.sin(kpori)
 
     chunk = 512 if dev.type == "cuda" else 64  # lanes per window batch
+    pad, chunks = padded_chunks(len(lanes), chunk, dev)
+    args = [a[pad] for a in (img, oct_sel, layer_c, xc, yc, x, y, radius, hw_safe,
+                             cos_a, sin_a, kpori, wl, hl)]
     desc = torch.zeros((bsz * n, 128), dtype=torch.uint8, device=dev)
-    for i in range(0, len(lanes), chunk):
-        s = slice(i, i + chunk)
-        desc[lanes[s]] = _descriptors(
-            sp, img[s], oct_sel[s], layer_c[s], xc[s], yc[s], x[s], y[s],
-            radius[s], hw_safe[s], cos_a[s], sin_a[s], kpori[s], wl[s], hl[s],
-            r, fast,
-        )
+    if chunks:
+        parts = [_descriptors(sp, *(a[s] for a in args), r, fast) for s in chunks]
+        desc[lanes] = torch.cat(parts)[: len(lanes)]
     return desc.reshape(bsz, n, 128)
+
+
+def compute_octave_descriptors(gauss: torch.Tensor, kp: Keypoints, octave: int,
+                               cfg: SiftConfig) -> torch.Tensor:
+    """The staged path's one-octave descriptors: gauss (S, H, W), kp (n,)
+    lanes of octave ``octave`` -> (n, 128) uint8."""
+    return compute_descriptors_all(
+        StackSpace.build([gauss[None]]), kp.map(lambda a: a[None]), cfg,
+        octave_of_volume=(octave,),
+    )[0]

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from sift_tpu_torch.config import M_PI2, ORI_SMOOTH_ITERATIONS, SiftConfig
-from sift_tpu_torch.ops.gather import StackSpace, gather_patches, lut
+from sift_tpu_torch.ops.gather import StackSpace, gather_patches, lut, padded_chunks
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -70,12 +70,15 @@ def _histograms(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
     return torch.bmm(contrib.reshape(len(x), 1, -1), onehot)[:, 0]
 
 
-def orient_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig):
+def orient_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig,
+               octave_of_volume: tuple[int, ...] | None = None):
     """Orientation candidates of a (B, n) keypoint buffer in initial-image
     coordinates.  Returns (candidates (B, n * slots) in input-image
     coordinates, in (lane, bin) order with a validity mask, and max_peaks:
     the most peaks any valid keypoint had; > slots means candidates were
-    dropped)."""
+    dropped).  ``octave_of_volume``: the true octave of each volume of
+    ``sp`` when it does not start at octave 0 (the staged path's
+    one-octave spaces)."""
     bsz, n = kp.x.shape
     dtype = kp.x.dtype
     dev = kp.x.device
@@ -92,8 +95,9 @@ def orient_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig):
         return a.reshape(-1)[lanes]
 
     kx, ky, ksize, koct, klayer = (pick(a) for a in (kp.x, kp.y, kp.size, kp.octave, kp.layer))
-    oct_sel = koct.clamp(0, octaves - 1)
-    pow_denom = lut([1.0 / math.pow(2, o) for o in range(octaves)], oct_sel, dtype)
+    oov = octave_of_volume or tuple(range(octaves))
+    oct_sel = (koct - oov[0]).clamp(0, octaves - 1)
+    pow_denom = lut([1.0 / math.pow(2, o) for o in oov], oct_sel, dtype)
     x = round_half_away(kx * pow_denom).to(torch.int64)  # src/sift.cpp:458
     y = round_half_away(ky * pow_denom).to(torch.int64)
     scale = cfg.ori_sigma_factor * (ksize * pow_denom)
@@ -106,14 +110,11 @@ def orient_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig):
     yc = torch.minimum(y.clamp_min(0), hl - 1)
 
     chunk = 2048 if dev.type == "cuda" else 256  # lanes per one-hot contraction
-    parts = [
-        _histograms(
-            sp, img[s], oct_sel[s], layer_c[s], xc[s], yc[s], x[s], y[s],
-            radius[s], edenom[s], wl[s], hl[s], nb, r, fast,
-        )
-        for s in (slice(i, i + chunk) for i in range(0, len(lanes), chunk))
-    ]
-    hist = torch.cat(parts) if parts else torch.zeros((0, nb), dtype=dtype, device=dev)
+    pad, chunks = padded_chunks(len(lanes), chunk, dev)
+    args = [a[pad] for a in (img, oct_sel, layer_c, xc, yc, x, y, radius, edenom, wl, hl)]
+    parts = [_histograms(sp, *(a[s] for a in args), nb, r, fast) for s in chunks]
+    hist = (torch.cat(parts)[: len(lanes)] if parts
+            else torch.zeros((0, nb), dtype=dtype, device=dev))
 
     # In-place circular smoothing, twice (src/sift.cpp:496-504): updated
     # bins feed later ones, exactly as the reference's loop.
@@ -165,3 +166,13 @@ def orient_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig):
         valid=cvalid.reshape(bsz, n * slots),
     )
     return cand, max_peaks.to(torch.int32)
+
+
+def orient_octave_keypoints(gauss: torch.Tensor, kp: Keypoints, octave: int, cfg: SiftConfig):
+    """The staged path's one-octave orientation: gauss (S, H, W), kp (n,)
+    lanes of octave ``octave`` -> (candidates (n * slots,), max_peaks)."""
+    cand, max_peaks = orient_all(
+        StackSpace.build([gauss[None]]), kp.map(lambda a: a[None]), cfg,
+        octave_of_volume=(octave,),
+    )
+    return cand.map(lambda a: a[0]), max_peaks

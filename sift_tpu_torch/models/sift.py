@@ -1,17 +1,28 @@
 """End-to-end SIFT: batched detect + describe (src/sift.cpp:712-776).
 
-The JAX package's fused route, stage by stage on plain per-octave stacks:
+Counterpart of ``sift_tpu/models/sift.py``, on plain per-octave stacks.
+``detect_and_describe_batch`` takes one of two routes, chosen by
+``use_front`` as the JAX package chooses:
 
+* the front route (float32, window 3, on the card by default):
   1. ``front``: initial image, then per octave kernel A (blur chain, DoG,
      extremum mask, popcounts) and the next octave's seed;
   2. ``detect_refine``: counts-assisted extrema compaction + cascaded
      Newton refinement, compacted to ``kp_cap``;
+* the non-front route (float64, another window, or the CPU by default):
+  1. ``pyramids``: initial image, then ``build_pyramids`` (kernel C per
+     octave, or the blur chain through kernel D);
+  2. ``_detect_refine_fused``: extrema of all octaves from the DoG stacks +
+     the same cascaded refinement;
+
+and then on both:
   3. ``orient``: orientation candidates, compacted to ``ori_cap``;
   4. ``dedup``: the reference's sort + unique, compacted;
   5. ``describe``: descriptors.
 
 Each stage is a plain function on tensors, so a caller can time them one
-by one; ``detect_and_describe_batch`` runs them in order.
+by one.  ``detect_stages`` is the staged path: one image, octave by octave,
+every stage's output kept (the parity and debugging view).
 """
 
 from __future__ import annotations
@@ -22,12 +33,25 @@ import math
 import numpy as np
 import torch
 
-from sift_tpu_torch.config import SiftConfig
-from sift_tpu_torch.models.descriptor import compute_descriptors_all
-from sift_tpu_torch.models.detect import extrema_from_counts, refine_keypoints_all
-from sift_tpu_torch.models.orient import orient_all
-from sift_tpu_torch.models.pyramid import build_pyramids, compute_initial_image
-from sift_tpu_torch.ops.gather import StackSpace
+from sift_tpu_torch.config import SiftConfig, kernel_on
+from sift_tpu_torch.models.descriptor import (
+    compute_descriptors_all,
+    compute_octave_descriptors,
+)
+from sift_tpu_torch.models.detect import (
+    detect_extrema_all,
+    detect_octave_extrema,
+    extrema_from_counts,
+    refine_keypoints_all,
+    refine_octave_keypoints,
+)
+from sift_tpu_torch.models.orient import orient_all, orient_octave_keypoints
+from sift_tpu_torch.models.pyramid import (
+    build_pyramids,
+    compute_initial_image,
+    front_pyramids,
+)
+from sift_tpu_torch.ops.gather import StackSpace, compact_mask
 from sift_tpu_torch.utils import keypoints as kputil
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import resolve_device
@@ -47,15 +71,38 @@ def octaves_for(imgs: torch.Tensor, cfg: SiftConfig) -> int:
     return cfg.octaves_count(imgs.shape[2] * scale, imgs.shape[1] * scale)
 
 
+def use_front(cfg: SiftConfig, device) -> bool:
+    """The batch route (the JAX package's ``_use_front``, with CUDA in the
+    TPU's place): the front route needs window 3 and float32, and runs when
+    ``use_octave_kernel`` is True, or None on the card."""
+    return cfg.window_size == 3 and kernel_on(cfg.use_octave_kernel, cfg.dtype, device)
+
+
 def front(imgs: torch.Tensor, cfg: SiftConfig):
-    """Stage 1: (gaussians, dogs, masks, counts), per-octave lists."""
+    """Front route, stage 1: (gaussians, dogs, masks, counts), per-octave
+    lists."""
+    initial = compute_initial_image(imgs, cfg)
+    return front_pyramids(initial, cfg, octaves_for(imgs, cfg))
+
+
+def pyramids(imgs: torch.Tensor, cfg: SiftConfig):
+    """Non-front route, stage 1: (gaussians, dogs), per-octave lists."""
     initial = compute_initial_image(imgs, cfg)
     return build_pyramids(initial, cfg, octaves_for(imgs, cfg))
 
 
 def detect_refine(dogs, masks, counts, cfg: SiftConfig):
-    """Stage 2: (keypoints (B, kp_cap), counts dict)."""
-    oct_id, zyx, valid, n_ext = extrema_from_counts(masks, counts, cfg.extrema_cap)
+    """Front route, stage 2: (keypoints (B, kp_cap), counts dict)."""
+    return _refine(dogs, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
+
+
+def _detect_refine_fused(dogs, cfg: SiftConfig):
+    """Non-front route, stage 2: same contract as ``detect_refine``."""
+    return _refine(dogs, *detect_extrema_all(
+        dogs, cfg.extremum_threshold(), cfg.extrema_cap, cfg.window_size), cfg)
+
+
+def _refine(dogs, oct_id, zyx, valid, n_ext, cfg: SiftConfig):
     kp, off0, n_active = refine_keypoints_all(
         StackSpace.build(dogs), oct_id, zyx, valid, cfg
     )
@@ -97,9 +144,14 @@ def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
     """
     cfg = cfg or SiftConfig()
     imgs = as_batch(images, cfg, device)
-    gaussians, dogs, masks, counts = front(imgs, cfg)
-    kp, c_det = detect_refine(dogs, masks, counts, cfg)
-    del dogs, masks, counts
+    if use_front(cfg, imgs.device):
+        gaussians, dogs, masks, counts = front(imgs, cfg)
+        kp, c_det = detect_refine(dogs, masks, counts, cfg)
+        del masks, counts
+    else:
+        gaussians, dogs = pyramids(imgs, cfg)
+        kp, c_det = _detect_refine_fused(dogs, cfg)
+    del dogs
     gsp = StackSpace.build(gaussians)
     del gaussians
     cand, c_ori = orient(gsp, kp, cfg)
@@ -130,3 +182,71 @@ def host_exact_sizes(kp: Keypoints, off0, cfg: SiftConfig) -> Keypoints:
     for i in np.nonzero(kp.valid.cpu().numpy().reshape(-1))[0]:
         flat_s[i] = flat_sc[i] * math.pow(2, float(flat_t[i]))
     return dataclasses.replace(kp, size=torch.from_numpy(size).to(kp.size.device))
+
+
+def detect_stages(img, cfg: SiftConfig, octaves: int, device="cuda") -> dict:
+    """The staged path: every stage of one image, octave by octave (the JAX
+    package's ``detect_stages``, after the stage boundaries of
+    src/sift.cpp:712-776).
+
+    ``img``: (H, W[, C]).  Returns initial (H1, W1), gaussians / dogs (per
+    octave (S, H_o, W_o)), extrema (per octave (zyx, valid)), refined and
+    oriented (per octave lane buffers), final (the deduplicated buffer with
+    descriptors) and counts.  Capacities are per octave, octave 0's halved
+    per octave: ``extrema_cap_for_octave`` extrema, ``kp_cap_for_octave``
+    refined keypoints and twice that many orientation candidates; the
+    deduplicated buffer holds ``ori_cap``.  ``counts`` holds the true
+    per-octave counts (extrema, refined, oriented, ori_slots_max: (octaves,))
+    and the deduplicated total (final), for the capacity check.  In float64
+    the refined sizes take the host's pow (``host_exact_sizes``: every valid
+    lane of one octave's buffer has that octave).
+    """
+    dev = resolve_device(device)
+    img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img)
+    initial = compute_initial_image(as_batch(img[None], cfg, dev), cfg)
+    gaussians, dogs = build_pyramids(initial, cfg, octaves)
+    gaussians = [g[0] for g in gaussians]
+    dogs = [d[0] for d in dogs]
+    out = dict(initial=initial[0], gaussians=gaussians, dogs=dogs,
+               extrema=[], refined=[], oriented=[])
+    counts = dict(extrema=[], refined=[], oriented=[], ori_slots_max=[])
+    for o in range(octaves):
+        zyx, valid, n_ext = detect_octave_extrema(
+            dogs[o], cfg.extremum_threshold(), cfg.extrema_cap_for_octave(o),
+            cfg.window_size,
+        )
+        out["extrema"].append((zyx, valid))
+        kp, off0 = refine_octave_keypoints(dogs[o], zyx, valid, o, cfg)
+        n_ref = kp.valid.sum(dtype=torch.int32)
+        kp, off0 = kputil.compact(kp, cfg.kp_cap_for_octave(o), extra=off0)
+        if cfg.dtype == torch.float64:
+            kp = host_exact_sizes(kp, off0, cfg)
+        out["refined"].append(kp)
+        cand, max_peaks = orient_octave_keypoints(gaussians[o], kp, o, cfg)
+        n_ori = cand.valid.sum(dtype=torch.int32)
+        out["oriented"].append(kputil.compact(cand, 2 * cfg.kp_cap_for_octave(o)))
+        for k, v in zip(counts, (n_ext, n_ref, n_ori, max_peaks)):
+            counts[k].append(v)
+    ded = kputil.sort_and_dedup(kputil.concatenate(out["oriented"]))
+    allkp = kputil.compact(ded, cfg.ori_cap)
+    desc = allkp.desc
+    for o in range(octaves):
+        desc = _octave_descriptors(gaussians[o], allkp, desc, o, cfg)
+    out["final"] = dataclasses.replace(allkp, desc=desc)
+    out["counts"] = {k: torch.stack(v) for k, v in counts.items()}
+    out["counts"]["final"] = ded.valid.sum(dtype=torch.int32)
+    return out
+
+
+def _octave_descriptors(gauss, allkp: Keypoints, desc, octave: int, cfg: SiftConfig):
+    """``desc`` with the descriptors of ``allkp``'s octave-``octave`` lanes
+    filled in: the first 2 * kp_cap_for_octave of them, as the JAX
+    package's staged path selects them (compact_mask)."""
+    sel = allkp.valid & (allkp.octave == octave)
+    idx, in_range = compact_mask(sel, 2 * cfg.kp_cap_for_octave(octave))
+    sub = kputil.take(allkp, idx)
+    sub = dataclasses.replace(sub, valid=sub.valid & in_range)
+    got = compute_octave_descriptors(gauss, sub, octave, cfg)
+    desc = desc.clone()
+    desc[idx[in_range]] = got[in_range]
+    return desc

@@ -15,14 +15,30 @@ import torch
 
 
 def compact_mask(flat: torch.Tensor, cap: int):
-    """Ascending indices of the first ``cap`` <= n True lanes of ``flat`` (lanes
+    """Ascending indices of the first ``cap`` True lanes of ``flat`` (lanes
     last, any leading batch dims): ``(idx, valid)`` with ``idx`` int64 in
     [0, n-1] and ``valid[k]`` iff there are more than ``k`` set lanes."""
     n = flat.shape[-1]
     idx = torch.sort((~flat).to(torch.uint8), dim=-1, stable=True).indices[..., :cap]
+    if cap > n:  # a capacity above the lane count: the tail is never valid
+        idx = torch.cat([idx, idx.new_full(idx.shape[:-1] + (cap - n,), n - 1)], dim=-1)
     total = flat.sum(-1, keepdim=True)
     valid = torch.arange(cap, device=flat.device) < total
     return torch.where(valid, idx, torch.full_like(idx, n - 1)), valid
+
+
+def padded_chunks(n: int, chunk: int, device):
+    """Lane indices ``[0, n)`` padded to a whole number of ``chunk``-lane
+    chunks (the last lane repeated), and the chunks' slices.
+
+    Orientation and descriptors contract each chunk with one batched
+    matmul.  cuBLAS picks its kernel, and with it the order of the sums, by
+    the batch size, so a lane's result would depend on how many lanes its
+    call has; equal chunks keep it the same on every path.
+    """
+    n_pad = -(-n // chunk) * chunk
+    idx = torch.arange(n_pad, device=device).clamp_max(max(n - 1, 0))
+    return idx, [slice(i, i + chunk) for i in range(0, n_pad, chunk)]
 
 
 def lut(values, sel: torch.Tensor, dtype) -> torch.Tensor:

@@ -18,10 +18,7 @@ import torch.nn.functional as F
 
 from sift_tpu_torch import kernels
 from sift_tpu_torch.config import half_kernel_weight_sum
-from sift_tpu_torch.ops.blur import separable_blur
-
-MAX_LAYERS = 8  # csrc/octave_front.cu MAX_LAYERS / MAX_TAPS
-MAX_TAPS = 16
+from sift_tpu_torch.ops.octave_blur import MAX_LAYERS, MAX_TAPS, octave_blur_plain
 
 
 def extremum_mask(dog: torch.Tensor, threshold: float, window_size: int = 3):
@@ -51,11 +48,7 @@ def octave_front_plain(seed, half_kernels, threshold: float, window_size: int = 
     dogs (B, S-1, H, W), mask (B, S-3, H, nbm*128) 0/1 in the seed's dtype,
     counts (B, S-3, H, nbm) int32); mask border rows/columns and lanes >= W
     are zero."""
-    layers = [seed]
-    for hk in half_kernels:
-        layers.append(separable_blur(layers[-1], hk))
-    g = torch.stack(layers, dim=-3)
-    dogs = g[:, 1:] - g[:, :-1]
+    g, dogs = octave_blur_plain(seed, half_kernels)
     bsz, h, w = seed.shape
     nbm = -(-w // 128)
     b = window_size // 2

@@ -73,6 +73,19 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, -1, idx)
 
 
+def take(kp: Keypoints, idx: torch.Tensor) -> Keypoints:
+    """The lanes ``idx`` of every field, in that order."""
+    return Keypoints(**{f: _take(getattr(kp, f), idx) for f in FIELDS})
+
+
+def concatenate(kps: list[Keypoints]) -> Keypoints:
+    """Lane buffers joined along the lane axis."""
+    return Keypoints(**{
+        f: torch.cat([getattr(k, f) for k in kps], dim=-2 if f == "desc" else -1)
+        for f in FIELDS
+    })
+
+
 def _fit(a: torch.Tensor, out_cap: int, lane_dim: int) -> torch.Tensor:
     """Cut or zero-pad the lane axis to ``out_cap``."""
     n = a.shape[lane_dim]
@@ -130,8 +143,7 @@ def sort_and_dedup(kp: Keypoints) -> Keypoints:
         torch.where(v, kp.pori, big),
         torch.where(v, -kp.octave, torch.full_like(kp.octave, 2**30)),
     ]
-    order = _lexsort(keys)
-    kp = Keypoints(**{f: _take(getattr(kp, f), order) for f in FIELDS})
+    kp = take(kp, _lexsort(keys))
     same = torch.ones_like(kp.valid)
     for k in (kp.x, kp.y, kp.size, kp.pori):
         same &= k == torch.roll(k, 1, dims=-1)

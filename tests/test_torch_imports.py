@@ -12,7 +12,13 @@ import pytest
 import torch
 
 import sift_tpu_torch
-from sift_tpu_torch import detect_and_describe, detect_and_describe_batch, match_descriptors
+from sift_tpu_torch import (
+    SiftConfig,
+    detect_and_describe,
+    detect_and_describe_batch,
+    match_descriptors,
+)
+from sift_tpu_torch.models.sift import detect_stages
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sift_tpu_torch"
@@ -56,6 +62,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         detect_and_describe_batch(img[None])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         detect_and_describe(img)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_stages(img, SiftConfig(), 2)
     d = np.zeros((4, 128), np.uint8)
     v = np.ones(4, bool)
     with pytest.raises(RuntimeError, match="no CUDA device"):
