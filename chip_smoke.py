@@ -6,22 +6,26 @@
 Builds the port's CUDA kernels from ``sift_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and holds each kernel against its plain PyTorch
 version at the shapes its paths give it: kernel A (octave front), B (top-2
-matcher), C (octave blur) and D (one separable blur).  Then it drives the
-port's three routes on 640x480 frames (the CAVE-01 pair, the
-oracle-decoded pixels of tests/data), capacities extrema/kp/ori =
-6144/1536/2048, float32:
+matcher), C (octave blur), D (one separable blur) and E (twin-row gather
+space).  Then it drives the port's routes on 640x480 frames (the CAVE-01
+pair, the oracle-decoded pixels of tests/data), capacities extrema/kp/ori
+= 6144/1536/2048, float32:
 
 * the main path, the front route: batched detect + describe + match,
   batch 16 (the pair x8), through kernels D (initial image), A and B;
 * the staged path ``detect_stages``, frame by frame, through C and D;
 * the non-front (XLA) route with ``use_octave_kernel=False``, batch 16,
-  through D for the initial image and every blur of the chain;
+  through D for the initial image and every blur of the chain, and E for
+  the DoG and gauss gather spaces;
 
 and checks the reference's answer on each: 677 and 1067 keypoints and the
 identical 165-match set on every pair, and the same keypoints and
-descriptors as the main path.  Every launch counter is set to 0 just
-before a path and read just after.  Then it times the sweep, each stage,
-the staged path, the XLA route and each kernel.
+descriptors as the main path.  Last, the non-front route as a
+``window_size=5`` configuration takes it, batch 16, through C, D, E and
+B: finite, within its capacities, and equal to the same route on the
+plain stacks.  Every launch counter is set to 0 just before a path and
+read just after.  Then it times the sweep, each stage, the staged path,
+the other routes and each kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as the last
@@ -160,13 +164,18 @@ def bound(t_bytes, t_ops):
 
 
 def same(a, b, what: str) -> float:
-    """Fail unless ``a`` and ``b`` are equal in shape and bits; returns 0.0,
-    the max |a - b| of a check that passed."""
+    """Fail unless ``a`` and ``b`` are equal in shape and bits; returns the
+    max |a - b| as measured (0.0 when they are equal)."""
     need(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
-    if not bool((a == b).all()):
-        err = (a.double() - b.double()).abs().max().item()
-        raise SmokeError(f"{what}: max |diff| {err}")
-    return 0.0
+    err = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+    need(err == 0.0 and bool((a == b).all()), f"{what}: max |diff| {err}")
+    return err
+
+
+def twin_bound(floats_in, floats_out):
+    """Least time of kernel E's gather spaces: every stack read once and
+    each whole (B, RT, 2 blk) buffer written once; no arithmetic."""
+    return 4 * (floats_in + floats_out) / HBM_BPS * 1e3, 0.0
 
 
 def library_blur(img, hk):
@@ -215,12 +224,13 @@ def main() -> int:
     from sift_tpu_torch.ops.octave_front import octave_front, octave_front_plain
     from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
     from sift_tpu_torch.ops.top2 import top2, top2_plain
+    from sift_tpu_torch.ops.twin_rows import twin_rows_strips, twin_rows_strips_plain
     from sift_tpu_torch.utils.keypoints import FIELDS
 
     dev = torch.device("cuda")
     smi = smi_line()
     counted = dict(octave_front=octave_front, top2=top2, octave_blur=octave_blur,
-                   blur_pass=separable_blur_kernel)
+                   blur_pass=separable_blur_kernel, twin_rows=twin_rows_strips)
 
     def zero_counts():
         for fn in counted.values():
@@ -232,7 +242,7 @@ def main() -> int:
 
     # -- phase 1: device and kernel build ---------------------------------
     t0 = time.perf_counter()
-    logs = kernels.build(["octave_front", "top2", "blur_pass"])
+    logs = kernels.build(["octave_front", "top2", "blur_pass", "twin_rows"])
     build_s = time.perf_counter() - t0
     # ptxas's register / spill report of each kernel (empty when cached).
     ptxas = {k: [ln.split(":", 1)[-1].strip() for ln in v.splitlines()
@@ -290,8 +300,11 @@ def main() -> int:
 
     # -- phase 3: kernel C vs its plain version and kernel A, and kernel D
     # vs its plain version on every blur of the chain, every octave shape --
+    # C at batch 16 (the non-front route's shapes) and per frame (1, H, W)
+    # (the staged path's); the batch's pyramid stays for kernel E's check.
     c_err = d_err = 0.0
     d_checked = []
+    gs16, ds16 = [], []
     for o, seed in enumerate(seeds):
         ref = octave_blur_plain(seed, hks)
         got = octave_blur(seed, hks)
@@ -299,15 +312,22 @@ def main() -> int:
         torch.cuda.synchronize()
         for name, a, b, f in zip(("gauss", "dog"), got, ref, front):
             c_err = max(c_err, same(a, b, f"kernel C octave {o} {name} vs plain"))
-            same(a, f, f"kernel C octave {o} {name} vs kernel A")
+            c_err = max(c_err, same(a, f, f"kernel C octave {o} {name} vs kernel A"))
+        for i in range(2):
+            one = seed[i: i + 1].contiguous()
+            for name, a, b in zip(("gauss", "dog"), octave_blur(one, hks),
+                                  octave_blur_plain(one, hks)):
+                c_err = max(c_err, same(a, b, f"kernel C frame {i} octave {o} {name} vs plain"))
         for k, hk in enumerate(hks):
             layer = ref[0][:, k].contiguous()
             d_err = max(d_err, same(separable_blur_kernel(layer, hk), separable_blur(layer, hk),
                                     f"kernel D octave {o} blur {k + 1} vs plain"))
             d_checked.append(dict(octave=o, blur=k + 1, taps=len(hk)))
+        gs16.append(got[0])
+        ds16.append(got[1])
         del ref, got, front
     c_times = octave_bound(shapes, BATCH, hks, mask=False)
-    emit(dict(phase="kernel_c_vs_plain", shapes_hw=shapes, batch=BATCH,
+    emit(dict(phase="kernel_c_vs_plain", shapes_hw=shapes, batch=BATCH, staged_batch=1,
               bit_equal_to_plain=True, bit_equal_to_kernel_a=True,
               max_abs_err=c_err, bytes_ms=c_times[0], ops_ms=c_times[1]))
 
@@ -318,10 +338,32 @@ def main() -> int:
     initial = separable_blur_kernel(gray, pre)
     d_err = max(d_err, same(initial, separable_blur(gray, pre), "kernel D initial vs plain"))
     same(initial, seeds[0], "kernel D initial vs the main path's seed")
+    for i in range(2):  # the staged path's per-frame initial image
+        one = gray[i: i + 1].contiguous()
+        d_err = max(d_err, same(separable_blur_kernel(one, pre), separable_blur(one, pre),
+                                f"kernel D frame {i} initial vs plain"))
     d_times = blur_bound(tuple(gray.shape), pre)
     emit(dict(phase="kernel_d_vs_plain", initial_shape=list(gray.shape),
               initial_taps=len(pre), chain_blurs=d_checked, bit_equal=True,
               max_abs_err=d_err, bytes_ms=d_times[0], ops_ms=d_times[1]))
+
+    # -- kernel E vs its plain version: the batch's gauss and DoG stacks at
+    # the non-front route's twin width --------------------------------------
+    e_err = 0.0
+    e_rows, e_in = [], 0
+    for name, stacks in (("gauss", gs16), ("dog", ds16)):
+        got = twin_rows_strips(stacks, S.TWIN_BLK)
+        ref = twin_rows_strips_plain(stacks, S.TWIN_BLK)
+        torch.cuda.synchronize()
+        need((got.nbs, got.bases, got.shp) == (ref.nbs, ref.bases, ref.shp), f"kernel E {name} plan")
+        e_err = max(e_err, same(got.rows, ref.rows, f"kernel E {name} vs plain"))
+        e_rows.append(got.rows.numel())
+        e_in += sum(v.numel() for v in stacks)
+        del got, ref
+    e_times = twin_bound(e_in, sum(e_rows))
+    emit(dict(phase="kernel_e_vs_plain", stacks=["gauss", "dog"], batch=BATCH,
+              blk=S.TWIN_BLK, buffer_floats=e_rows, bit_equal=True, max_abs_err=e_err,
+              bytes_ms=e_times[0], ops_ms=e_times[1]))
 
     # -- phase 4: kernel B vs its plain version, 8 pairs at 2048 x 2048 -----
     g = torch.Generator().manual_seed(0)
@@ -371,9 +413,8 @@ def main() -> int:
             need(got_set == want, f"{what} pair {p}: {len(got_set)} matches, "
                  f"{len(got_set ^ want)} differ from the oracle's 165-match set")
 
-    def check_batch(kp, counts, what):
-        nkp = kp.valid.sum(1).tolist()
-        need(nkp == list(WANT_KP) * (BATCH // 2), f"{what}: keypoint counts {nkp}")
+    def honest(kp, counts, what):
+        """No capacity clipped a real detection and every value is finite."""
         caps = dict(extrema=cfg.extrema_cap, refined=cfg.kp_cap, oriented=cfg.ori_cap)
         for k, cap in caps.items():
             need(int(counts[k].max()) <= cap, f"{what}: {k} count {counts[k].tolist()} > {cap}")
@@ -383,6 +424,11 @@ def main() -> int:
         for k, v in kp.to_numpy().items():
             if v.dtype.kind == "f":
                 need(np.isfinite(v).all(), f"{what}: non-finite {k}")
+
+    def check_batch(kp, counts, what):
+        nkp = kp.valid.sum(1).tolist()
+        need(nkp == list(WANT_KP) * (BATCH // 2), f"{what}: keypoint counts {nkp}")
+        honest(kp, counts, what)
         check_matches(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2], kp.valid[1::2], what)
         return nkp
 
@@ -449,15 +495,15 @@ def main() -> int:
 
     # -- phase 7: the non-front (XLA) route, batch 16, counted ---------------
     xcfg = dataclasses.replace(cfg, use_octave_kernel=False)
-    need(not S.use_front(xcfg, dev), "use_octave_kernel=False kept the front route")
+    need(S.route_of(xcfg, dev) == "twin_rows", "use_octave_kernel=False: not the twin-row route")
     zero_counts()
     kx, cx = S.detect_and_describe_batch(imgs, xcfg, return_counts=True, device=dev)
     launches["xla_route"] = read_counts()
     n_blurs = 1 + len(hks) * octaves
-    need(launches["xla_route"]["blur_pass"] == 2 * n_blurs
-         and launches["xla_route"]["octave_blur"] == 0
-         and launches["xla_route"]["octave_front"] == 0,
-         f"XLA route launches {launches['xla_route']}, want blur_pass {2 * n_blurs} only")
+    want_x = dict(octave_front=0, top2=0, octave_blur=0, blur_pass=2 * n_blurs,
+                  twin_rows=2 * octaves)
+    need(launches["xla_route"] == want_x,
+         f"XLA route launches {launches['xla_route']}, want {want_x}")
     check_batch(kx, cx, "XLA route")
     for f in FIELDS:
         same(getattr(kx, f), getattr(kp, f), f"XLA route {f} vs the main path")
@@ -467,8 +513,33 @@ def main() -> int:
               counts={k: v.tolist() for k, v in cx.items()}))
     del kx, cx
 
-    # -- phase 8: timing of the sweep, its stages, the other routes and the
-    # kernels C and D -----------------------------------------------------
+    # -- phase 8: the non-front route as window_size=5 takes it, batch 16,
+    # counted: kernels D (initial image), C, E and B ---------------------------
+    wcfg = dataclasses.replace(cfg, window_size=5)
+    need(S.route_of(wcfg, dev) == "twin_rows", "window_size=5: not the twin-row route")
+    zero_counts()
+    kw, cw = S.detect_and_describe_batch(imgs, wcfg, return_counts=True, device=dev)
+    _, accw, _, _ = match_descriptors(kw.desc[0::2], kw.valid[0::2], kw.desc[1::2],
+                                      kw.valid[1::2], cfg.ratio_threshold, device=dev)
+    launches["window5"] = read_counts()
+    want_w = dict(octave_front=0, octave_blur=octaves, blur_pass=2, twin_rows=2 * octaves)
+    need({k: launches["window5"][k] for k in want_w} == want_w
+         and launches["window5"]["top2"] > 0,
+         f"window-5 route launches {launches['window5']}, want {want_w} and top2")
+    honest(kw, cw, "window-5 route")
+    nkw = kw.valid.sum(1).tolist()
+    need(min(nkw) > 0, f"window-5 route: keypoint counts {nkw}")
+    plain_layout, _ = S.run_route(imgs, wcfg, "stacks")
+    for f in FIELDS:
+        same(getattr(kw, f), getattr(plain_layout, f), f"window-5 route {f} vs plain stacks")
+        same(getattr(kw, f)[2:], getattr(kw, f)[:-2], f"window-5 route {f} across equal frames")
+    emit(dict(phase="window5_route", keypoints=nkw[:2], matches=int(accw[0].sum()),
+              equal_to_plain_stacks=True, equal_frames_equal=True,
+              launches=launches["window5"], counts={k: v.tolist() for k, v in cw.items()}))
+    del kw, cw, plain_layout
+
+    # -- phase 9: timing of the sweep, its stages, the other routes and the
+    # kernels C, D and E --------------------------------------------------
     def sweep(c=cfg):
         out = S.detect_and_describe_batch(imgs, c, device=dev)
         m = match_descriptors(out.desc[0::2], out.valid[0::2], out.desc[1::2],
@@ -486,6 +557,7 @@ def main() -> int:
 
     sweep_ms = host_ms(sweep, TIMED_SWEEPS)
     xla_ms = host_ms(lambda: sweep(xcfg), TIMED_SWEEPS)
+    window5_ms = host_ms(lambda: sweep(wcfg), TIMED_SWEEPS)
     staged_ms = host_ms(lambda: [S.detect_stages(o["input"], scfg, octaves, device=dev)
                                  for o in (o1, o2)], 2) / 2
 
@@ -514,11 +586,14 @@ def main() -> int:
             cfg.ratio_threshold, device=dev))
     emit(dict(phase="timing", batch=BATCH, frames_per_s=BATCH / sweep_ms * 1e3,
               sweep_ms=sweep_ms, stage_ms=stages, xla_route_sweep_ms=xla_ms,
+              window5_route_sweep_ms=window5_ms,
               staged_ms_per_frame=staged_ms,
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
 
     c_ms = cuda_ms(lambda: [octave_blur(s, hks) for s in seeds], KERNEL_REPS)
     c_plain_ms = cuda_ms(lambda: [octave_blur_plain(s, hks) for s in seeds], 3)
+    frame_seeds = [s[:1].contiguous() for s in seeds]
+    c_frame_ms = cuda_ms(lambda: [octave_blur(s, hks) for s in frame_seeds], KERNEL_REPS)
     c_bound, c_by = bound(*c_times)
     d_ms = cuda_ms(lambda: separable_blur_kernel(gray, pre), KERNEL_REPS)
     d_plain_ms = cuda_ms(lambda: separable_blur(gray, pre), 5)
@@ -526,9 +601,16 @@ def main() -> int:
     d_lib_err = (library_blur(gray, pre) - initial).abs().max().item()
     d_lib_ms = cuda_ms(lambda: library_blur(gray, pre), 5)
     d_bound, d_by = bound(*d_times)
+    e_ms = cuda_ms(lambda: [twin_rows_strips(st, S.TWIN_BLK) for st in (gs16, ds16)],
+                   KERNEL_REPS)
+    e_plain_ms = cuda_ms(lambda: [twin_rows_strips_plain(st, S.TWIN_BLK) for st in (gs16, ds16)],
+                         3)
+    e_bound, e_by = bound(*e_times)
     emit(dict(phase="kernel_timing", octave_blur_ms=c_ms, octave_blur_plain_ms=c_plain_ms,
+              octave_blur_one_frame_ms=c_frame_ms,
               blur_pass_ms=d_ms, blur_pass_plain_ms=d_plain_ms, library_blur_ms=d_lib_ms,
-              library_blur_max_abs_err=d_lib_err))
+              library_blur_max_abs_err=d_lib_err, twin_rows_ms=e_ms,
+              twin_rows_plain_ms=e_plain_ms))
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -545,12 +627,13 @@ def main() -> int:
              launches=launches["main"]["top2"], max_abs_err=float(b_err),
              ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
              library_ms=b_lib_ms, launches_by_path=by_path("top2")),
-        # Kernel C is not on the front route: its launches are the staged
-        # path's (two frames).  No single PyTorch call computes an octave.
+        # Kernels C and E are not on the front route: their launches and
+        # times are the window-5 route's (batch 16).  No single PyTorch call
+        # computes an octave, or the twin rows.
         dict(name="octave_blur", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:675",
-             launches=launches["staged"]["octave_blur"], max_abs_err=c_err,
+             launches=launches["window5"]["octave_blur"], max_abs_err=c_err,
              ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bound_by=c_by,
              library_ms=None, launches_by_path=by_path("octave_blur")),
         dict(name="blur_pass", route="cuda", source="sift_tpu_torch/csrc/blur_pass.cu",
@@ -558,6 +641,11 @@ def main() -> int:
              launches=launches["main"]["blur_pass"], max_abs_err=d_err,
              ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound, bound_by=d_by,
              library_ms=d_lib_ms, launches_by_path=by_path("blur_pass")),
+        dict(name="twin_rows", route="cuda", source="sift_tpu_torch/csrc/twin_rows.cu",
+             replaces="sift_tpu/ops/pallas_relayout.py:135",
+             launches=launches["window5"]["twin_rows"], max_abs_err=e_err,
+             ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound, bound_by=e_by,
+             library_ms=None, launches_by_path=by_path("twin_rows")),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -25,7 +25,7 @@ DESC_MAGNITUDE_THR = 0.2
 INT_DESCR_FCTR = 512.0
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-_RENAMED = {"use_pallas_blur": "use_blur_kernel", "use_pallas_pyramid": "use_octave_kernel"}
+_RENAMED = {"use_pallas_pyramid": "use_octave_kernel"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,18 +65,12 @@ class SiftConfig:
     # profile held against the C++ reference.
     dtype: torch.dtype = torch.float32
 
-    # Route knobs, counterparts of the JAX package's use_pallas_blur and
-    # use_pallas_pyramid.  None: auto, True: the kernel, False: the plain
-    # chain.  Auto resolves on for float32 tensors on CUDA (``kernel_on``).
-    # The JAX package leaves its blur kernel off by default only because of
-    # a TPU compile-time cost; nvcc builds these kernels once per run.
-    # use_blur_kernel: one blur through kernel D (ops/blur_pass.py), which
-    # covers the initial image and, on the non-front route without the
-    # octave kernel, every layer of the chain.
-    use_blur_kernel: bool | None = None
-    # use_octave_kernel: a whole octave through kernel C (ops/octave_blur.py)
-    # in build_pyramids; with window_size 3 in float32 it also picks the
-    # batch route (models/sift.use_front).
+    # Route knob, the counterpart of the JAX package's use_pallas_pyramid.
+    # None: auto, True: the octave kernels, False: the blur chain.  Auto
+    # resolves on for float32 tensors on CUDA (``kernel_on``).  On: a whole
+    # octave through kernel C (ops/octave_blur.py) in build_pyramids, and
+    # with window_size 3 in float32 the front route (models/sift.use_front).
+    # Off: every blur of the chain through kernel D (ops/blur_pass.py).
     use_octave_kernel: bool | None = None
 
     @staticmethod
@@ -85,9 +79,12 @@ class SiftConfig:
 
         ``dtype`` may be given by name (``"float32"``/``"float64"``) or as
         any object whose ``str`` is such a name (a numpy dtype); the JAX
-        package's ``use_pallas_blur`` / ``use_pallas_pyramid`` become
-        ``use_blur_kernel`` / ``use_octave_kernel``; other fields the port
-        does not have are dropped.
+        package's ``use_pallas_pyramid`` becomes ``use_octave_kernel``.
+        ``use_pallas_blur`` needs no knob: every value of it gives the port
+        the same result, since the port's one float32 blur on the card is
+        kernel D, bit-equal to the plain blur of the CPU and float64 (the JAX
+        package leaves its blur kernel off by default only for its compile
+        time on the TPU).  Other fields the port does not have are dropped.
         """
         names = {f.name for f in dataclasses.fields(SiftConfig)}
         fields = {_RENAMED.get(k, k): v for k, v in fields.items()}

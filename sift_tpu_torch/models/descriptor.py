@@ -120,7 +120,7 @@ def hist_to_desc(hist: torch.Tensor) -> torch.Tensor:
     return val.clamp_max(255).to(torch.uint8)
 
 
-def compute_descriptors_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig,
+def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
                             octave_of_volume: tuple[int, ...] | None = None) -> torch.Tensor:
     """Descriptors of a (B, n) post-dedup keypoint buffer in input-image
     coordinates: (B, n, 128) uint8, zero on invalid lanes.

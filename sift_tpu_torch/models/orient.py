@@ -70,7 +70,7 @@ def _histograms(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
     return torch.bmm(contrib.reshape(len(x), 1, -1), onehot)[:, 0]
 
 
-def orient_all(sp: StackSpace, kp: Keypoints, cfg: SiftConfig,
+def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
                octave_of_volume: tuple[int, ...] | None = None):
     """Orientation candidates of a (B, n) keypoint buffer in initial-image
     coordinates.  Returns (candidates (B, n * slots) in input-image

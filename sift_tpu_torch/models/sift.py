@@ -1,10 +1,9 @@
 """End-to-end SIFT: batched detect + describe (src/sift.cpp:712-776).
 
-Counterpart of ``sift_tpu/models/sift.py``, on plain per-octave stacks.
-``detect_and_describe_batch`` takes one of two routes, chosen by
-``use_front`` as the JAX package chooses:
+Counterpart of ``sift_tpu/models/sift.py``.  ``detect_and_describe_batch``
+takes one of three routes (``route_of``), chosen as the JAX package chooses:
 
-* the front route (float32, window 3, on the card by default):
+* ``"front"`` (float32, window 3, on the card by default; ``use_front``):
   1. ``front``: initial image, then per octave kernel A (blur chain, DoG,
      extremum mask, popcounts) and the next octave's seed;
   2. ``detect_refine``: counts-assisted extrema compaction + cascaded
@@ -14,8 +13,11 @@ Counterpart of ``sift_tpu/models/sift.py``, on plain per-octave stacks.
      octave, or the blur chain through kernel D);
   2. ``_detect_refine_fused``: extrema of all octaves from the DoG stacks +
      the same cascaded refinement;
+  in float32 on the card (``"twin_rows"``, ``use_twin_rows``) it gathers
+  from the twin rows that kernel E writes, as the JAX package's does from
+  ``twin_rows_strips``; else (``"stacks"``) from the plain stacks;
 
-and then on both:
+and then on all three:
   3. ``orient``: orientation candidates, compacted to ``ori_cap``;
   4. ``dedup``: the reference's sort + unique, compacted;
   5. ``describe``: descriptors.
@@ -52,6 +54,7 @@ from sift_tpu_torch.models.pyramid import (
     front_pyramids,
 )
 from sift_tpu_torch.ops.gather import StackSpace, compact_mask
+from sift_tpu_torch.ops.twin_rows import twin_rows_strips
 from sift_tpu_torch.utils import keypoints as kputil
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import resolve_device
@@ -78,6 +81,31 @@ def use_front(cfg: SiftConfig, device) -> bool:
     return cfg.window_size == 3 and kernel_on(cfg.use_octave_kernel, cfg.dtype, device)
 
 
+def use_twin_rows(cfg: SiftConfig, device) -> bool:
+    """The non-front route's gather layout (the JAX package's
+    ``_use_pallas_relayout``, with CUDA in the TPU's place): kernel E's
+    twin rows for float32 on the card, else the plain stacks."""
+    return cfg.dtype == torch.float32 and torch.device(device).type == "cuda"
+
+
+def route_of(cfg: SiftConfig, device) -> str:
+    """``"front"``, ``"twin_rows"`` or ``"stacks"`` (see the module doc)."""
+    if use_front(cfg, device):
+        return "front"
+    return "twin_rows" if use_twin_rows(cfg, device) else "stacks"
+
+
+# Twin block width of the non-front route's gather spaces: the JAX
+# package's _REFINE_BLK for the DoGs and its gauss rows' width.
+TWIN_BLK = 64
+
+
+def gather_space(stacks, twin_rows: bool):
+    """One gather space over per-octave (B, S, H_o, W_o) stacks: kernel
+    E's ``MultiRows`` or the plain ``StackSpace``."""
+    return twin_rows_strips(stacks, TWIN_BLK) if twin_rows else StackSpace.build(stacks)
+
+
 def front(imgs: torch.Tensor, cfg: SiftConfig):
     """Front route, stage 1: (gaussians, dogs, masks, counts), per-octave
     lists."""
@@ -93,19 +121,19 @@ def pyramids(imgs: torch.Tensor, cfg: SiftConfig):
 
 def detect_refine(dogs, masks, counts, cfg: SiftConfig):
     """Front route, stage 2: (keypoints (B, kp_cap), counts dict)."""
-    return _refine(dogs, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
+    return _refine(StackSpace.build(dogs),
+                   *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
 
 
-def _detect_refine_fused(dogs, cfg: SiftConfig):
-    """Non-front route, stage 2: same contract as ``detect_refine``."""
-    return _refine(dogs, *detect_extrema_all(
+def _detect_refine_fused(dogs, cfg: SiftConfig, twin_rows: bool):
+    """Non-front route, stage 2: same contract as ``detect_refine``;
+    ``twin_rows``: refine from kernel E's twin rows of the DoGs."""
+    return _refine(gather_space(dogs, twin_rows), *detect_extrema_all(
         dogs, cfg.extremum_threshold(), cfg.extrema_cap, cfg.window_size), cfg)
 
 
-def _refine(dogs, oct_id, zyx, valid, n_ext, cfg: SiftConfig):
-    kp, off0, n_active = refine_keypoints_all(
-        StackSpace.build(dogs), oct_id, zyx, valid, cfg
-    )
+def _refine(space, oct_id, zyx, valid, n_ext, cfg: SiftConfig):
+    kp, off0, n_active = refine_keypoints_all(space, oct_id, zyx, valid, cfg)
     n_ref = kp.valid.sum(-1, dtype=torch.int32)
     kp, off0 = kputil.compact(kp, cfg.kp_cap, extra=off0)
     if cfg.dtype == torch.float64:
@@ -113,7 +141,7 @@ def _refine(dogs, oct_id, zyx, valid, n_ext, cfg: SiftConfig):
     return kp, dict(extrema=n_ext, refined=n_ref, refine_active=n_active)
 
 
-def orient(gsp: StackSpace, kp: Keypoints, cfg: SiftConfig):
+def orient(gsp, kp: Keypoints, cfg: SiftConfig):
     """Stage 3: (candidates (B, ori_cap), counts dict)."""
     cand, max_peaks = orient_all(gsp, kp, cfg)
     n_cand = cand.valid.sum(-1, dtype=torch.int32)
@@ -127,7 +155,7 @@ def dedup(cand: Keypoints, cfg: SiftConfig) -> Keypoints:
     return kputil.dedup_compact(cand, cfg.ori_cap)
 
 
-def describe(gsp: StackSpace, allkp: Keypoints, cfg: SiftConfig) -> Keypoints:
+def describe(gsp, allkp: Keypoints, cfg: SiftConfig) -> Keypoints:
     """Stage 5: the final buffer with descriptors."""
     return dataclasses.replace(allkp, desc=compute_descriptors_all(gsp, allkp, cfg))
 
@@ -144,21 +172,28 @@ def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
     """
     cfg = cfg or SiftConfig()
     imgs = as_batch(images, cfg, device)
-    if use_front(cfg, imgs.device):
+    out, counts = run_route(imgs, cfg, route_of(cfg, imgs.device))
+    return (out, counts) if return_counts else out
+
+
+def run_route(imgs: torch.Tensor, cfg: SiftConfig, route: str):
+    """The stages of one batch route (``"front"``, ``"twin_rows"`` or
+    ``"stacks"``) on a (B, H, W, C) tensor, whatever ``route_of`` would
+    choose: (final buffer, counts dict)."""
+    if route == "front":
         gaussians, dogs, masks, counts = front(imgs, cfg)
         kp, c_det = detect_refine(dogs, masks, counts, cfg)
         del masks, counts
-    else:
+    elif route in ("twin_rows", "stacks"):
         gaussians, dogs = pyramids(imgs, cfg)
-        kp, c_det = _detect_refine_fused(dogs, cfg)
+        kp, c_det = _detect_refine_fused(dogs, cfg, route == "twin_rows")
+    else:
+        raise ValueError(f"unknown route {route!r}")
     del dogs
-    gsp = StackSpace.build(gaussians)
+    gsp = gather_space(gaussians, route == "twin_rows")
     del gaussians
     cand, c_ori = orient(gsp, kp, cfg)
-    out = describe(gsp, dedup(cand, cfg), cfg)
-    if return_counts:
-        return out, {**c_det, **c_ori}
-    return out
+    return describe(gsp, dedup(cand, cfg), cfg), {**c_det, **c_ori}
 
 
 def detect_and_describe(image, cfg: SiftConfig | None = None, device="cuda") -> Keypoints:

@@ -1,10 +1,20 @@
-"""Mask compaction, tiny-table lookups and plain-stack gathers.
+"""Mask compaction, tiny-table lookups and the gather spaces.
 
-The JAX package gathers from TPU-shaped layouts (twin rows, row units,
-cube-packed DoG rows) built for the TPU's DMA granularity.  The port reads
-plain per-octave stacks instead: every octave's (B, S, H, W) stack is
-flattened into one (B, total) buffer, and ``StackSpace`` records where each
-octave starts.  Cubes and patches are then one element gather each.
+A gather space holds the per-octave (B, S, H_o, W_o) stacks of a batch in
+one buffer, so one gather serves every octave; cubes and patches are then
+one element gather each.  Two layouts:
+
+* ``StackSpace``: the plain stacks, flattened one after another;
+* ``MultiRows``: the strip-interleaved twin-block rows that kernel E
+  (ops/twin_rows.py) writes, the JAX package's ``gather.MultiRows`` with
+  ``shp`` set.  The JAX package's non-front route builds it on the
+  accelerator in float32, and so does the port's on the card.
+
+Both answer ``index(img, oct_id, s, y, x, x0)``: the flat offset of element
+(s, y, x) of each lane's volume.  ``x0`` is the lane's window start, which
+picks the twin block as the JAX package's gathers pick it.  The JAX
+package's other TPU layouts (row units, cube-packed DoG rows, the front
+kernel's emission) are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,8 +57,27 @@ def lut(values, sel: torch.Tensor, dtype) -> torch.Tensor:
     return table[sel.long()]
 
 
+class _Space:
+    shapes: tuple  # (S, H, W) per octave
+
+    def lut(self, name: str, values, oct_id: torch.Tensor) -> torch.Tensor:
+        """``lut`` over a per-octave int64 table kept on the lanes' device
+        for the life of the space: building a device table from host data
+        waits for the stream, and the gathers run once per Newton step and
+        per lane chunk."""
+        tables = self.__dict__.setdefault("_tables", {})
+        t = tables.get(name)
+        if t is None:
+            t = tables[name] = torch.tensor(values, dtype=torch.int64, device=oct_id.device)
+        return t[oct_id.long()]
+
+    def table(self, axis: int, oct_id: torch.Tensor) -> torch.Tensor:
+        """Per-lane octave dimension (0: S, 1: H, 2: W), int64."""
+        return self.lut(f"dim{axis}", [s[axis] for s in self.shapes], oct_id)
+
+
 @dataclasses.dataclass
-class StackSpace:
+class StackSpace(_Space):
     """Per-octave (B, S, H_o, W_o) stacks flattened into one buffer.
 
     ``flat`` is (B * total,): image ``b``'s octave ``o`` starts at
@@ -57,7 +86,7 @@ class StackSpace:
     """
 
     flat: torch.Tensor
-    shapes: tuple  # (S, H, W) per octave
+    shapes: tuple
     bases: tuple
     total: int
 
@@ -76,17 +105,52 @@ class StackSpace:
             total=acc,
         )
 
-    def origin(self, img: torch.Tensor, oct_id: torch.Tensor) -> torch.Tensor:
-        """Flat offset of each lane's (image, octave) volume (int64)."""
-        return img.long() * self.total + lut(self.bases, oct_id, torch.int64)
-
-    def table(self, axis: int, oct_id: torch.Tensor) -> torch.Tensor:
-        """Per-lane octave dimension (0: S, 1: H, 2: W), int64."""
-        return lut([s[axis] for s in self.shapes], oct_id, torch.int64)
+    def index(self, img, oct_id, s, y, x, x0):
+        origin = img.long() * self.total + self.lut("bases", self.bases, oct_id)
+        return origin + (s * self.table(1, oct_id) + y) * self.table(2, oct_id) + x
 
 
-def gather_cubes(sp: StackSpace, img, oct_id, zyx) -> torch.Tensor:
-    """(..., 3, 3, 3) cubes cube[a, b, c] = vol[z+a-1, y+b-1, x+c-1].
+@dataclasses.dataclass
+class MultiRows(_Space):
+    """Strip-interleaved twin-block rows of per-octave stacks.
+
+    ``rows`` is (B, RT, 2 * blk).  With r = s * H_o + y the flat image row,
+    octave ``o``'s row (s, y), block b (columns [b * blk, (b + 2) * blk),
+    zero past W_o) is row ``bases[o] + (((r >> ls) * nbs[o] + b) << ls) +
+    (r & (st - 1))`` of each image, ls = shp[o] and st = 1 << ls.  Any
+    window of up to blk + 1 columns from x0 lies in block x0 // blk.
+    """
+
+    rows: torch.Tensor
+    shapes: tuple
+    blk: int
+    nbs: tuple
+    bases: tuple
+    shp: tuple
+
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.rows.reshape(-1)
+
+    def index(self, img, oct_id, s, y, x, x0):
+        nb = self.lut("nbs", self.nbs, oct_id)
+        ls = self.lut("shp", self.shp, oct_id)
+        # The block of the window start, as the JAX package's gathers pick
+        # it; a column past that twin (a window wider than blk + 1) takes
+        # the block that holds it in its second half.
+        b = torch.maximum(torch.minimum(x0.long().clamp_min(0) // self.blk, nb - 1),
+                          x // self.blk - 1)
+        r = s * self.table(1, oct_id) + y
+        row = (
+            img.long() * self.rows.shape[1] + self.lut("bases", self.bases, oct_id)
+            + (((r >> ls) * nb + b) << ls) + (r & ((1 << ls) - 1))
+        )
+        return row * (2 * self.blk) + x - b * self.blk
+
+
+def gather_cubes(sp, img, oct_id, zyx) -> torch.Tensor:
+    """(..., 3, 3, 3) cubes cube[a, b, c] = vol[z+a-1, y+b-1, x+c-1] from a
+    gather space.
 
     Positions are clamped to the interior for the read only: valid lanes
     always are interior, and invalid lanes' values are never used.
@@ -99,22 +163,23 @@ def gather_cubes(sp: StackSpace, img, oct_id, zyx) -> torch.Tensor:
     x = torch.minimum(zyx[..., 2].long().clamp_min(1), w - 2)
     d = torch.arange(-1, 2, device=zyx.device)
     e = (..., None, None, None)
-    idx = (
-        sp.origin(img, oct_id)[e]
-        + ((z[e] + d[:, None, None]) * h[e] + (y[e] + d[None, :, None])) * w[e]
-        + (x[e] + d[None, None, :])
-    )
-    return sp.flat[idx]
+    return sp.flat[sp.index(
+        img[e], oct_id[e], z[e] + d[:, None, None], y[e] + d[None, :, None],
+        x[e] + d[None, None, :], x[e] - 1,
+    )]
 
 
-def gather_patches(sp: StackSpace, img, oct_id, layer, ys0, xs0, patch: int):
+def gather_patches(sp, img, oct_id, layer, ys0, xs0, patch: int):
     """(N, patch, patch) patches p[n, a, b] = vol[layer, ys0 + a, xs0 + b]
-    with rows and columns clamped to the image (callers mask every sample
-    whose gradient neighbourhood leaves the image, as the reference does)."""
+    from a gather space, with rows and columns clamped to the image
+    (callers mask every sample whose gradient neighbourhood leaves the
+    image, as the reference does)."""
     h = sp.table(1, oct_id)[:, None]
     w = sp.table(2, oct_id)[:, None]
     aa = torch.arange(patch, device=ys0.device)
     ys = torch.minimum((ys0.long()[:, None] + aa).clamp_min(0), h - 1)
     xs = torch.minimum((xs0.long()[:, None] + aa).clamp_min(0), w - 1)
-    row = sp.origin(img, oct_id)[:, None] + (layer.long()[:, None] * h + ys) * w
-    return sp.flat[row[:, :, None] + xs[:, None, :]]
+    e = (slice(None), None, None)
+    return sp.flat[sp.index(
+        img[e], oct_id[e], layer.long()[e], ys[:, :, None], xs[:, None, :], xs0[e],
+    )]

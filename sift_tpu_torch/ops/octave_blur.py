@@ -66,12 +66,6 @@ def octave_blur(seed: torch.Tensor, half_kernels):
 octave_blur.launches = 0
 
 
-def as_lists(gauss: torch.Tensor, dogs: torch.Tensor):
-    """The JAX ``fused_octave_blur`` lists from the stacks: ``gauss[i]`` is
-    blur i+1 (the seed left out) and ``dogs[i] = gauss[i] - gauss[i-1]``."""
-    return list(gauss.unbind(-3)[1:]), list(dogs.unbind(-3))
-
-
 def _launcher():
     fn = kernels.load("octave_front").octave_blur_launch
     p, i = ctypes.c_void_p, ctypes.c_int

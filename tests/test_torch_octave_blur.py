@@ -15,10 +15,16 @@ from sift_tpu.models.pyramid import build_pyramids as jax_build_pyramids
 from sift_tpu.ops.pallas_pyramid import fused_octave_blur
 from sift_tpu_torch import SiftConfig
 from sift_tpu_torch.models.pyramid import blur_half_kernels, build_pyramids, front_pyramids
-from sift_tpu_torch.ops.octave_blur import as_lists, octave_blur, octave_blur_plain
+from sift_tpu_torch.ops.octave_blur import octave_blur, octave_blur_plain
 
 torch.set_num_threads(2)
 HKS = blur_half_kernels(SiftConfig())
+
+
+def as_lists(gauss: torch.Tensor, dogs: torch.Tensor):
+    """The JAX ``fused_octave_blur`` lists from the stacks: ``gauss[i]`` is
+    blur i+1 (the seed left out) and ``dogs[i] = gauss[i] - gauss[i-1]``."""
+    return list(gauss.unbind(-3)[1:]), list(dogs.unbind(-3))
 
 
 @pytest.mark.parametrize("shape", [(2, 96, 128), (2, 67, 257), (48, 160)],

@@ -60,16 +60,6 @@ def _keyed(x, y, size, pori, desc):
     }
 
 
-def _front_route(imgs, cfg):
-    """The front route's stages, run explicitly: float64 and the CPU take
-    the non-front route in ``detect_and_describe_batch``."""
-    gaussians, dogs, masks, counts = S.front(imgs, cfg)
-    kp, _ = S.detect_refine(dogs, masks, counts, cfg)
-    gsp = StackSpace.build(gaussians)
-    cand, _ = S.orient(gsp, kp, cfg)
-    return S.describe(gsp, S.dedup(cand, cfg), cfg)
-
-
 @pytest.mark.parametrize("route", ["default", "front"])
 def test_final_keypoints_and_descriptors_equal_oracle(case, route):
     """Same keypoint set (x, y, size bit-equal) and 0 descriptor bytes off,
@@ -77,7 +67,7 @@ def test_final_keypoints_and_descriptors_equal_oracle(case, route):
     the front route."""
     oracle, imgs, _, _, final = case
     if route == "front":
-        final = _front_route(imgs, CFG64).map(lambda a: a[0])
+        final = S.run_route(imgs, CFG64, "front")[0].map(lambda a: a[0])
     mine = final.dense()
     got = _keyed(mine["x"], mine["y"], mine["size"], mine["pori"], mine["desc"])
     want = _keyed(*(oracle[f"final.{f}"] for f in ("x", "y", "size", "pori", "desc")))

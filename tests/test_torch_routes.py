@@ -18,7 +18,6 @@ from sift_tpu import SiftConfig as JaxConfig
 from sift_tpu.models import sift as JS
 from sift_tpu_torch import SiftConfig, detect_and_describe_batch
 from sift_tpu_torch.models import sift as S
-from sift_tpu_torch.ops.gather import StackSpace
 from sift_tpu_torch.utils.keypoints import FIELDS
 
 torch.set_num_threads(2)
@@ -40,13 +39,15 @@ def test_use_front_gives_jax_answer(monkeypatch, window, dtype, knob, backend):
     assert S.use_front(cfg, "cuda" if backend == "tpu" else "cpu") == want
 
 
-def _front_route(imgs, cfg):
-    """The front route's stages, whatever use_front says."""
-    gaussians, dogs, masks, counts = S.front(imgs, cfg)
-    kp, _ = S.detect_refine(dogs, masks, counts, cfg)
-    gsp = StackSpace.build(gaussians)
-    cand, _ = S.orient(gsp, kp, cfg)
-    return S.describe(gsp, S.dedup(cand, cfg), cfg)
+@pytest.mark.parametrize("dtype,backend", list(itertools.product(DTYPES, ("cpu", "tpu"))))
+def test_use_twin_rows_gives_jax_answer(monkeypatch, dtype, backend):
+    """The non-front route's gather layout: JAX's _use_pallas_relayout,
+    CUDA standing in for the TPU."""
+    monkeypatch.setattr(JS.jax, "default_backend", lambda: backend)
+    want = JS._use_pallas_relayout([jnp.zeros((1, 2, 4, 4), DTYPES[dtype][1])])
+    cfg = SiftConfig(dtype=DTYPES[dtype][0])
+    assert S.use_twin_rows(cfg, "cuda" if backend == "tpu" else "cpu") == want
+    assert S.route_of(dataclasses.replace(cfg, window_size=5), "cpu") == "stacks"
 
 
 def _assert_same_buffer(a, b):
@@ -67,7 +68,7 @@ def test_routes_agree_float64(small):
     imgs = np.stack([small, small[::-1]])
     got = detect_and_describe_batch(imgs, cfg, device="cpu")
     assert int(got.valid.sum()) > 0
-    _assert_same_buffer(got, _front_route(S.as_batch(imgs, cfg, "cpu"), cfg))
+    _assert_same_buffer(got, S.run_route(S.as_batch(imgs, cfg, "cpu"), cfg, "front")[0])
 
 
 def test_routes_agree_float32_through_the_knob(small):
@@ -108,6 +109,9 @@ def test_window5_float64_equals_jax_xla_route(small):
 
 @pytest.mark.parametrize("blur,pyramid", [(None, None), (True, False), (False, True)])
 def test_from_reference_maps_the_knobs(blur, pyramid):
+    """use_pallas_pyramid becomes use_octave_kernel; use_pallas_blur, which
+    changes no result of the port, leaves the config as it is."""
     fields = dataclasses.asdict(JaxConfig(use_pallas_blur=blur, use_pallas_pyramid=pyramid))
     t = SiftConfig.from_reference(fields)
-    assert (t.use_blur_kernel, t.use_octave_kernel) == (blur, pyramid)
+    assert t.use_octave_kernel == pyramid
+    assert t == SiftConfig.from_reference({**fields, "use_pallas_blur": None})
