@@ -6,14 +6,18 @@
 Builds the port's CUDA kernels from ``sift_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and holds each kernel against its plain PyTorch
 version at the shapes its paths give it: kernel A (octave front), B (top-2
-matcher), C (octave blur), D (one separable blur) and E (twin-row gather
-space).  Then it drives the port's routes on 640x480 frames (the CAVE-01
-pair, the oracle-decoded pixels of tests/data), capacities extrema/kp/ori
-= 6144/1536/2048, float32:
+matcher), C (octave blur), D (one separable blur), E (twin-row gather
+space), F (octave front into the front-twin gather layouts), G (cube-packed
+DoG rows) and H (row-major twin rows).  Then it drives the port's routes
+on 640x480 frames (the CAVE-01 pair, the oracle-decoded pixels of
+tests/data), capacities extrema/kp/ori = 6144/1536/2048, float32:
 
-* the main path, the front route: batched detect + describe + match,
-  batch 16 (the pair x8), through kernels D (initial image), A and B;
-* the staged path ``detect_stages``, frame by frame, through C and D;
+* the main path, the front-twin route: batched detect + describe + match,
+  batch 16 (the pair x8), through kernels D (initial image), F and B;
+* the same route with two octaves sent through its fallback (kernels A
+  and G beside F);
+* the front route (plain stacks) through ``run_route``: D, A, B;
+* the staged path ``detect_stages``, frame by frame, through C, D and H;
 * the non-front (XLA) route with ``use_octave_kernel=False``, batch 16,
   through D for the initial image and every blur of the chain, and E for
   the DoG and gauss gather spaces;
@@ -24,7 +28,7 @@ descriptors as the main path.  Last, the non-front route as a
 ``window_size=5`` configuration takes it, batch 16, through C, D, E and
 B: finite, within its capacities, and equal to the same route on the
 plain stacks.  Every launch counter is set to 0 just before a path and
-read just after.  Then it times the sweep, each stage, the staged path,
+read just after.  Then it times the sweeps, each stage, the staged path,
 the other routes and each kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
@@ -178,6 +182,34 @@ def twin_bound(floats_in, floats_out):
     return 4 * (floats_in + floats_out) / HBM_BPS * 1e3, 0.0
 
 
+def front_twin_bound(plan, bsz, hks):
+    """Least time of one sweep's octaves through kernel F, counting what its
+    launch moves: each seed read once; every value it stores into the two
+    gather buffers (csrc/octave_front.cu ``store_twin``: a gauss value of a
+    stored layer once, and once more from column blk on; ``store_packed``:
+    a DoG value in its block, and in the block before where the windows
+    overlap), mask, counts and ``down`` written once; kernel A's float32
+    operations.  The buffers' zero lanes, rows past H and gaps come from
+    their zero fill, which is no part of the launch and is timed apart."""
+    n = len(hks)
+    ops_px = sum(blur_ops(hk) + 1 for hk in hks) + (n - 2) * 55
+    sw = 128 // n
+    stride = sw - 3
+    nbytes = ops = 0
+    for (h, w, _, _, _, _), nbp in zip(plan.octaves, plan.pk_nbps):
+        nbm = -(-w // 128)
+        twin = w + max(w - plan.blk, 0)
+        packed = 0
+        for x in range(w):
+            cb, j = divmod(x + 1, stride)
+            packed += (cb < nbp) + (1 <= cb <= nbp and j + stride < sw)
+        floats = h * w + h * (plan.g_nl * twin + n * packed)
+        floats += (n - 2) * h * (nbm * 128 + nbm) + h * w
+        nbytes += 4 * bsz * floats
+        ops += bsz * h * w * ops_px
+    return nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+
+
 def library_blur(img, hk):
     """The yardstick for kernel D, never called by the port: one blur as
     replicate padding and a 1-D cuDNN convolution per axis, taps divided by
@@ -219,18 +251,33 @@ def main() -> int:
     from sift_tpu_torch.ops.blur import separable_blur
     from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
     from sift_tpu_torch.ops.color import to_grayscale
-    from sift_tpu_torch.ops.gather import StackSpace
+    from sift_tpu_torch.models.pyramid import front_twin_pyramids
+    from sift_tpu_torch.ops.cube_pack import cube_pack_rows
+    from sift_tpu_torch.ops.gather import StackSpace, build_multi_rows, cube_rows_plain
     from sift_tpu_torch.ops.octave_blur import octave_blur, octave_blur_plain
-    from sift_tpu_torch.ops.octave_front import octave_front, octave_front_plain
+    from sift_tpu_torch.ops.octave_front import (
+        front_twin_strip,
+        octave_front,
+        octave_front_plain,
+        octave_front_twin,
+        octave_front_twin_plain,
+    )
     from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
     from sift_tpu_torch.ops.top2 import top2, top2_plain
-    from sift_tpu_torch.ops.twin_rows import twin_rows_strips, twin_rows_strips_plain
+    from sift_tpu_torch.ops.twin_rows import (
+        twin_rows_2d,
+        twin_rows_2d_plain,
+        twin_rows_strips,
+        twin_rows_strips_plain,
+    )
     from sift_tpu_torch.utils.keypoints import FIELDS
 
     dev = torch.device("cuda")
     smi = smi_line()
     counted = dict(octave_front=octave_front, top2=top2, octave_blur=octave_blur,
-                   blur_pass=separable_blur_kernel, twin_rows=twin_rows_strips)
+                   blur_pass=separable_blur_kernel, twin_rows=twin_rows_strips,
+                   octave_front_twin=octave_front_twin, cube_pack=cube_pack_rows,
+                   twin_rows_2d=twin_rows_2d)
 
     def zero_counts():
         for fn in counted.values():
@@ -242,7 +289,7 @@ def main() -> int:
 
     # -- phase 1: device and kernel build ---------------------------------
     t0 = time.perf_counter()
-    logs = kernels.build(["octave_front", "top2", "blur_pass", "twin_rows"])
+    logs = kernels.build(["octave_front", "top2", "blur_pass", "twin_rows", "cube_pack"])
     build_s = time.perf_counter() - t0
     # ptxas's register / spill report of each kernel (empty when cached).
     ptxas = {k: [ln.split(":", 1)[-1].strip() for ln in v.splitlines()
@@ -365,6 +412,109 @@ def main() -> int:
               blk=S.TWIN_BLK, buffer_floats=e_rows, bit_equal=True, max_abs_err=e_err,
               bytes_ms=e_times[0], ops_ms=e_times[1]))
 
+    # -- kernel F vs its plain version at every octave shape of the batch, in
+    # the front-twin route's own layout; what it wrote read back through the
+    # gather spaces' index against kernel A's stacks ---------------------------
+    plan = S.front_twin_plan(cfg, octaves, *shapes[0])
+    need([(o[0], o[1]) for o in plan.octaves] == shapes and all(o[3] for o in plan.octaves),
+         f"front-twin plan {plan.octaves}")
+    f_args = [(seed, hks, thr, gbase, st, plan.blk, plan.g_l0, plan.g_nl, pkbase)
+              for seed, (_, _, st, _, _, gbase), pkbase in zip(seeds, plan.octaves, plan.pk_bases)]
+
+    def twin_buffers():
+        return (torch.zeros((BATCH, plan.g_total, 2 * plan.blk), device=dev),
+                torch.zeros((BATCH, plan.pk_total, 128), device=dev))
+
+    def run_f(fn, gbuf, pkbuf):
+        return [fn(sd, hk, t, gbuf, gb, st, blk, l0, nl, pkbuf, pb)
+                for sd, hk, t, gb, st, blk, l0, nl, pb in f_args]
+
+    gk, pkk = twin_buffers()
+    gp, pkp = twin_buffers()
+    f_err = 0.0
+    for o, (got, ref) in enumerate(zip(run_f(octave_front_twin, gk, pkk),
+                                       run_f(octave_front_twin_plain, gp, pkp))):
+        for name, a, b in zip(("mask", "counts", "down"), got, ref):
+            f_err = max(f_err, same(a, b, f"kernel F octave {o} {name} vs plain"))
+    torch.cuda.synchronize()
+    f_err = max(f_err, same(gk, gp, "kernel F gauss twin rows vs plain"),
+                same(pkk, pkp, "kernel F cube-packed rows vs plain"))
+    del gp, pkp
+    gmr, dcr, f_masks, f_counts = front_twin_pyramids(seeds[0], cfg, plan)
+    same(gmr.rows, gk, "front_twin_pyramids gauss rows vs kernel F alone")
+    same(dcr.rows, pkk, "front_twin_pyramids packed rows vs kernel F alone")
+    need(gmr.rows_u.shape == (BATCH, plan.g_total // plan.unit, plan.unit * 2 * plan.blk)
+         and gmr.rows_u.data_ptr() == gmr.rows.data_ptr(), "rows_u is not a view of the rows")
+    img_i = torch.arange(BATCH, device=dev)[:, None, None, None]
+    a_dogs = []
+    for o, seed in enumerate(seeds):
+        ga, da, ma, ca = octave_front(seed, hks, thr)
+        same(f_masks[o], ma, f"kernel F octave {o} mask vs kernel A")
+        same(f_counts[o], ca, f"kernel F octave {o} counts vs kernel A")
+        h, w = shapes[o]
+        oc = torch.full((1, 1, 1, 1), o, device=dev)
+        yy = torch.arange(h, device=dev)[None, None, :, None]
+        xx = torch.arange(w, device=dev)[None, None, None, :]
+        ll = torch.arange(plan.g_l0, plan.g_l0 + plan.g_nl, device=dev)[None, :, None, None]
+        for x0 in (xx, (xx - plan.blk).clamp_min(0)):  # a value's own twin block, and the one before
+            same(gmr.flat[gmr.index(img_i, oc, ll, yy, xx, x0)],
+                 ga[:, plan.g_l0: plan.g_l0 + plan.g_nl], f"octave {o} gauss through MultiRows.index")
+        ll = torch.arange(len(hks), device=dev)[None, :, None, None]
+        for back in (0, 1, 2):  # the window starts a cube gather reads column x from
+            same(dcr.flat[dcr.index(img_i, oc, ll, yy, xx, (xx - back).clamp_min(0))], da,
+                 f"octave {o} DoG through CubeRows.index")
+        a_dogs.append(da)
+        del ga, ma, ca
+    f_times = front_twin_bound(plan, BATCH, hks)
+    emit(dict(phase="kernel_f_vs_plain", shapes_hw=shapes, batch=BATCH,
+              strips=[o[2] for o in plan.octaves], unit=plan.unit,
+              gauss_rows_per_image=plan.g_total, packed_rows_per_image=plan.pk_total,
+              bit_equal_to_plain=True, index_reads_equal_kernel_a=True, max_abs_err=f_err,
+              bytes_ms=f_times[0], ops_ms=f_times[1]))
+    del gmr, f_masks, f_counts
+
+    # -- kernel G vs its plain version on the batch's eight DoG stacks at the
+    # plan's strips, and against what kernel F wrote for the same octaves ------
+    g_err = 0.0
+    g_in = g_out = 0
+    g_args = [(d, o[2], pb) for d, o, pb in zip(a_dogs, plan.octaves, plan.pk_bases)]
+    pkg = torch.zeros_like(pkk)
+    for o, (d, st, pb) in enumerate(g_args):
+        alone = cube_pack_rows(d, st)
+        g_err = max(g_err, same(alone, cube_rows_plain(d, st), f"kernel G octave {o} vs plain"))
+        cube_pack_rows(d, st, out=pkg, base=pb)
+        same(pkg[:, pb: pb + alone.shape[1]], alone, f"kernel G octave {o} in place vs alone")
+        g_in += d.numel()
+        g_out += alone.numel()
+        del alone
+    torch.cuda.synchronize()
+    g_err = max(g_err, same(pkg, pkk, "kernel G's buffer vs kernel F's"))
+    g_times = twin_bound(g_in, g_out)
+    emit(dict(phase="kernel_g_vs_plain", batch=BATCH, strips=[a[1] for a in g_args],
+              floats_in=g_in, floats_out=g_out, bit_equal_to_plain=True,
+              bit_equal_to_kernel_f=True, max_abs_err=g_err,
+              bytes_ms=g_times[0], ops_ms=g_times[1]))
+    del dcr
+
+    # -- kernel H vs its plain version: one frame's gauss and DoG stacks, the
+    # staged path's blk 128 and the batch routes' 64 ---------------------------
+    h_vols = [g[0] for g in gs16] + [d[0] for d in ds16]
+    h_err = 0.0
+    h_in = sum(v.numel() for v in h_vols)
+    for blk in (128, 64):
+        before = twin_rows_2d.launches
+        got = build_multi_rows(h_vols, blk)
+        need(twin_rows_2d.launches == before + len(h_vols), "build_multi_rows: kernel H not launched")
+        ref = torch.cat([twin_rows_2d_plain(v.reshape(-1, v.shape[-1]), blk) for v in h_vols])
+        h_err = max(h_err, same(got.rows, ref, f"kernel H blk {blk} vs plain"))
+        if blk == 128:
+            h_out = got.rows.numel()
+        del got, ref
+    h_times = twin_bound(h_in, h_out)
+    emit(dict(phase="kernel_h_vs_plain", volumes=len(h_vols), blks=[128, 64], floats_in=h_in,
+              floats_out_blk128=h_out, bit_equal=True, max_abs_err=h_err,
+              bytes_ms=h_times[0], ops_ms=h_times[1]))
+
     # -- phase 4: kernel B vs its plain version, 8 pairs at 2048 x 2048 -----
     g = torch.Generator().manual_seed(0)
     pairs, n = BATCH // 2, cfg.ori_cap
@@ -432,18 +582,63 @@ def main() -> int:
         check_matches(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2], kp.valid[1::2], what)
         return nkp
 
-    # -- phase 5: the main path (the front route), counted -------------------
+    def same_buffers(a, b, what):
+        for f in FIELDS:
+            same(getattr(a, f), getattr(b, f), f"{what}: {f}")
+
+    def expect_launches(path, want):
+        got = {k: launches[path][k] for k in want}
+        need(got == want, f"{path}: launches {launches[path]}, want {want}")
+
+    # -- phase 5: the main path (the front-twin route through the entry
+    # point), counted ----------------------------------------------------------
+    need(S.route_of(cfg, dev) == "front_twin", "the entry point does not take the front-twin route")
     zero_counts()
     kp, counts = S.detect_and_describe_batch(imgs, cfg, return_counts=True, device=dev)
     match_descriptors(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2], kp.valid[1::2],
                       cfg.ratio_threshold, device=dev)
     launches = {"main": read_counts()}
-    for k in ("octave_front", "top2", "blur_pass"):
-        need(launches["main"][k] > 0, f"main path: {k} was not launched: {launches['main']}")
+    expect_launches("main", dict(octave_front_twin=octaves, octave_front=0, cube_pack=0,
+                                 blur_pass=2, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0))
     nkp = check_batch(kp, counts, "main path")
-    emit(dict(phase="path", keypoints=nkp[:2], matches=WANT_MATCHES,
-              same_match_set=True, launches=launches["main"],
+
+    # The plain-stack front route, counted.
+    zero_counts()
+    kf, cf = S.run_route(imgs, cfg, "front")
+    match_descriptors(kf.desc[0::2], kf.valid[0::2], kf.desc[1::2], kf.valid[1::2],
+                      cfg.ratio_threshold, device=dev)
+    launches["front"] = read_counts()
+    expect_launches("front", dict(octave_front=octaves, octave_front_twin=0, cube_pack=0,
+                                  blur_pass=2, top2=1))
+    check_batch(kf, cf, "front route")
+    same_buffers(kp, kf, "front-twin route vs front route")
+    for k in counts:
+        same(torch.as_tensor(counts[k]), torch.as_tensor(cf[k]), f"front-twin vs front count {k}")
+    emit(dict(phase="front_twin_path", keypoints=nkp[:2], matches=WANT_MATCHES,
+              same_match_set=True, equal_to_front_route=True, launches=launches["main"],
               counts={k: v.tolist() for k, v in counts.items()}))
+    emit(dict(phase="path", route="front", keypoints=kf.valid.sum(1).tolist()[:2],
+              matches=WANT_MATCHES, same_match_set=True, launches=launches["front"]))
+    del kf, cf
+
+    # The front-twin route with octaves 0 and 3 sent through its fallback.
+    off = {shapes[0], shapes[3]}
+    fb_plan = S.front_twin_plan(
+        cfg, octaves, *shapes[0],
+        strip_fn=lambda shape, *a: None if tuple(shape) in off else front_twin_strip(shape, *a))
+    need([o[3] for o in fb_plan.octaves] == [tuple(sh) not in off for sh in shapes],
+         f"fallback plan {fb_plan.octaves}")
+    zero_counts()
+    kb, cb = S.run_route(imgs, cfg, "front_twin", fb_plan)
+    launches["fallback"] = read_counts()
+    expect_launches("fallback", dict(octave_front=2, cube_pack=2, octave_front_twin=octaves - 2,
+                                     blur_pass=2))
+    check_batch(kb, cb, "front-twin fallback")
+    same_buffers(kb, kp, "front-twin route with fallback octaves vs all fused")
+    emit(dict(phase="front_twin_fallback", fallback_octaves=[0, 3],
+              strips=[o[2] for o in fb_plan.octaves], keypoints=kb.valid.sum(1).tolist()[:2],
+              equal_to_main_path=True, launches=launches["fallback"]))
+    del kb, cb
 
     # -- phase 6: the staged path, frame by frame, counted -------------------
     def staged_overflow(st, c):
@@ -475,9 +670,11 @@ def main() -> int:
         raised.append(dict(overflow=over, raised_to=dict(
             extrema_cap=scfg.extrema_cap, kp_cap=scfg.kp_cap, ori_cap=scfg.ori_cap,
             ori_cand_slots=scfg.ori_cand_slots)))
-    want_launch = dict(octave_blur=octaves * 2, blur_pass=2 * 2)
-    for k, v in want_launch.items():
-        need(launches["staged"][k] == v, f"staged path: {k} {launches['staged']} != {v}")
+    # Per frame and octave kernel H builds the DoG rows (refine) and the gauss
+    # rows twice (orientation, descriptors), as the JAX package's stages do.
+    expect_launches("staged", dict(octave_blur=octaves * 2, blur_pass=2 * 2,
+                                   twin_rows_2d=3 * octaves * 2, octave_front=0,
+                                   octave_front_twin=0))
     for i, st in enumerate(staged):
         fin = st["final"]
         need(int(fin.valid.sum()) == WANT_KP[i], f"staged frame {i}: {int(fin.valid.sum())} kp")
@@ -500,13 +697,11 @@ def main() -> int:
     kx, cx = S.detect_and_describe_batch(imgs, xcfg, return_counts=True, device=dev)
     launches["xla_route"] = read_counts()
     n_blurs = 1 + len(hks) * octaves
-    want_x = dict(octave_front=0, top2=0, octave_blur=0, blur_pass=2 * n_blurs,
-                  twin_rows=2 * octaves)
-    need(launches["xla_route"] == want_x,
-         f"XLA route launches {launches['xla_route']}, want {want_x}")
+    expect_launches("xla_route", dict(octave_front=0, top2=0, octave_blur=0,
+                                      blur_pass=2 * n_blurs, twin_rows=2 * octaves,
+                                      octave_front_twin=0, cube_pack=0, twin_rows_2d=0))
     check_batch(kx, cx, "XLA route")
-    for f in FIELDS:
-        same(getattr(kx, f), getattr(kp, f), f"XLA route {f} vs the main path")
+    same_buffers(kx, kp, "XLA route vs the main path")
     emit(dict(phase="xla_route", keypoints=kx.valid.sum(1).tolist()[:2],
               matches=WANT_MATCHES, same_match_set=True, equal_to_main_path=True,
               launches=launches["xla_route"],
@@ -522,10 +717,8 @@ def main() -> int:
     _, accw, _, _ = match_descriptors(kw.desc[0::2], kw.valid[0::2], kw.desc[1::2],
                                       kw.valid[1::2], cfg.ratio_threshold, device=dev)
     launches["window5"] = read_counts()
-    want_w = dict(octave_front=0, octave_blur=octaves, blur_pass=2, twin_rows=2 * octaves)
-    need({k: launches["window5"][k] for k in want_w} == want_w
-         and launches["window5"]["top2"] > 0,
-         f"window-5 route launches {launches['window5']}, want {want_w} and top2")
+    expect_launches("window5", dict(octave_front=0, octave_front_twin=0, octave_blur=octaves,
+                                    blur_pass=2, twin_rows=2 * octaves, top2=1))
     honest(kw, cw, "window-5 route")
     nkw = kw.valid.sum(1).tolist()
     need(min(nkw) > 0, f"window-5 route: keypoint counts {nkw}")
@@ -538,10 +731,13 @@ def main() -> int:
               launches=launches["window5"], counts={k: v.tolist() for k, v in cw.items()}))
     del kw, cw, plain_layout
 
-    # -- phase 9: timing of the sweep, its stages, the other routes and the
-    # kernels C, D and E --------------------------------------------------
-    def sweep(c=cfg):
-        out = S.detect_and_describe_batch(imgs, c, device=dev)
+    # -- phase 9: timing of the sweeps, the stages of the front-twin and the
+    # front route, the other routes and the kernels ----------------------------
+    def sweep(c=cfg, route=None):
+        if route is None:
+            out = S.detect_and_describe_batch(imgs, c, device=dev)
+        else:
+            out, _ = S.run_route(imgs, c, route)
         m = match_descriptors(out.desc[0::2], out.valid[0::2], out.desc[1::2],
                               out.valid[1::2], cfg.ratio_threshold, device=dev)
         return out, m
@@ -555,41 +751,80 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / reps
 
-    sweep_ms = host_ms(sweep, TIMED_SWEEPS)
+    # The main path through its entry point and the front route through
+    # ``run_route``, in turns (twin, front, front, twin), so that a drift of
+    # the host's pace falls on both.
+    turns = [host_ms(lambda r=r: sweep(route=r), TIMED_SWEEPS)
+             for r in (None, "front", "front", None)]
+    sweep_ms, front_sweep_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     xla_ms = host_ms(lambda: sweep(xcfg), TIMED_SWEEPS)
     window5_ms = host_ms(lambda: sweep(wcfg), TIMED_SWEEPS)
     staged_ms = host_ms(lambda: [S.detect_stages(o["input"], scfg, octaves, device=dev)
                                  for o in (o1, o2)], 2) / 2
 
-    stages = {}
+    def stage_times(route):
+        """Stage-synchronised host times of one route's stages, ms."""
+        stages = {}
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t) * 1e3 / TIMED_SWEEPS
-        return out
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t) * 1e3 / TIMED_SWEEPS
+            return out
 
-    for _ in range(TIMED_SWEEPS):
-        gs, ds, ms_, cs = timed("front", lambda: S.front(imgs, cfg))
-        kpr, _ = timed("detect_refine", lambda: S.detect_refine(ds, ms_, cs, cfg))
-        del ds, ms_, cs
-        gsp = timed("gauss_space", lambda: StackSpace.build(gs))
-        del gs
-        cand, _ = timed("orient", lambda: S.orient(gsp, kpr, cfg))
-        allkp = timed("dedup", lambda: S.dedup(cand, cfg))
-        fin = timed("describe", lambda: S.describe(gsp, allkp, cfg))
-        del gsp
-        timed("match", lambda: match_descriptors(
-            fin.desc[0::2], fin.valid[0::2], fin.desc[1::2], fin.valid[1::2],
-            cfg.ratio_threshold, device=dev))
+        for _ in range(TIMED_SWEEPS):
+            if route == "front_twin":
+                gsp, dsp, ms_, cs = timed("front_twin", lambda: S.front_twin(imgs, cfg))
+            else:
+                gs, ds, ms_, cs = timed("front", lambda: S.front(imgs, cfg))
+                dsp = timed("dog_space", lambda: StackSpace.build(ds))
+                gsp = timed("gauss_space", lambda: StackSpace.build(gs))
+                del gs, ds
+            kpr, _ = timed("detect_refine", lambda: S.detect_refine(dsp, ms_, cs, cfg))
+            del dsp, ms_, cs
+            cand, _ = timed("orient", lambda: S.orient(gsp, kpr, cfg))
+            allkp = timed("dedup", lambda: S.dedup(cand, cfg))
+            fin = timed("describe", lambda: S.describe(gsp, allkp, cfg))
+            del gsp
+            timed("match", lambda: match_descriptors(
+                fin.desc[0::2], fin.valid[0::2], fin.desc[1::2], fin.valid[1::2],
+                cfg.ratio_threshold, device=dev))
+        return stages
+
+    # The stages too in turns; each route's two turns are averaged.
+    st_turns = [stage_times(r) for r in ("front_twin", "front", "front", "front_twin")]
+
+    def mean_stages(a, b):
+        return {k: (a[k] + b[k]) / 2 for k in a}
+
     emit(dict(phase="timing", batch=BATCH, frames_per_s=BATCH / sweep_ms * 1e3,
-              sweep_ms=sweep_ms, stage_ms=stages, xla_route_sweep_ms=xla_ms,
+              sweep_ms=sweep_ms, sweep_ms_turns=[turns[0], turns[3]],
+              stage_ms=mean_stages(st_turns[0], st_turns[3]),
+              stage_ms_sum_turns=[sum(st_turns[0].values()), sum(st_turns[3].values())],
+              front_route_sweep_ms=front_sweep_ms, front_route_sweep_ms_turns=turns[1:3],
+              front_route_stage_ms=mean_stages(st_turns[1], st_turns[2]),
+              front_route_stage_ms_sum_turns=[sum(st_turns[1].values()),
+                                              sum(st_turns[2].values())],
+              xla_route_sweep_ms=xla_ms,
               window5_route_sweep_ms=window5_ms,
               staged_ms_per_frame=staged_ms,
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
 
+    f_ms = cuda_ms(lambda: run_f(octave_front_twin, gk, pkk), KERNEL_REPS)
+    f_plain_ms = cuda_ms(lambda: run_f(octave_front_twin_plain, gk, pkk), 3)
+    fill_ms = cuda_ms(twin_buffers, 5)
+    f_bound, f_by = bound(*f_times)
+    g_ms = cuda_ms(lambda: [cube_pack_rows(d, st, out=pkg, base=pb) for d, st, pb in g_args],
+                   KERNEL_REPS)
+    g_plain_ms = cuda_ms(lambda: [cube_rows_plain(d, st) for d, st, _ in g_args], 3)
+    g_bound, g_by = bound(*g_times)
+    h_mats = [v.reshape(-1, v.shape[-1]) for v in h_vols]
+    h_ms = cuda_ms(lambda: [twin_rows_2d(m, 128) for m in h_mats], KERNEL_REPS)
+    h_plain_ms = cuda_ms(lambda: [twin_rows_2d_plain(m, 128) for m in h_mats], 5)
+    h_space_ms = cuda_ms(lambda: build_multi_rows(h_vols, 128), KERNEL_REPS)
+    h_bound, h_by = bound(*h_times)
     c_ms = cuda_ms(lambda: [octave_blur(s, hks) for s in seeds], KERNEL_REPS)
     c_plain_ms = cuda_ms(lambda: [octave_blur_plain(s, hks) for s in seeds], 3)
     frame_seeds = [s[:1].contiguous() for s in seeds]
@@ -610,7 +845,10 @@ def main() -> int:
               octave_blur_one_frame_ms=c_frame_ms,
               blur_pass_ms=d_ms, blur_pass_plain_ms=d_plain_ms, library_blur_ms=d_lib_ms,
               library_blur_max_abs_err=d_lib_err, twin_rows_ms=e_ms,
-              twin_rows_plain_ms=e_plain_ms))
+              twin_rows_plain_ms=e_plain_ms, octave_front_twin_ms=f_ms,
+              octave_front_twin_plain_ms=f_plain_ms, front_twin_zero_fill_ms=fill_ms,
+              cube_pack_ms=g_ms, cube_pack_plain_ms=g_plain_ms, twin_rows_2d_ms=h_ms,
+              twin_rows_2d_plain_ms=h_plain_ms, build_multi_rows_kernel_ms=h_space_ms))
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -619,7 +857,7 @@ def main() -> int:
         dict(name="octave_front", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:240",
-             launches=launches["main"]["octave_front"], max_abs_err=worst,
+             launches=launches["front"]["octave_front"], max_abs_err=worst,
              ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_by,
              library_ms=None, launches_by_path=by_path("octave_front")),
         dict(name="top2", route="cuda", source="sift_tpu_torch/csrc/top2.cu",
@@ -627,9 +865,12 @@ def main() -> int:
              launches=launches["main"]["top2"], max_abs_err=float(b_err),
              ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
              library_ms=b_lib_ms, launches_by_path=by_path("top2")),
-        # Kernels C and E are not on the front route: their launches and
-        # times are the window-5 route's (batch 16).  No single PyTorch call
-        # computes an octave, or the twin rows.
+        # ``launches`` is the count on the path that brought the kernel in:
+        # the main path (the front-twin route) for F, B and D, the front route
+        # for A, the window-5 route for C and E (batch 16), the fallback run
+        # for G, the staged path for H; ``launches_by_path`` has them all.
+        # No single PyTorch call computes an octave, the twin rows or the
+        # packed rows, so ``library_ms`` is null for all but B and D.
         dict(name="octave_blur", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:675",
@@ -646,6 +887,25 @@ def main() -> int:
              launches=launches["window5"]["twin_rows"], max_abs_err=e_err,
              ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound, bound_by=e_by,
              library_ms=None, launches_by_path=by_path("twin_rows")),
+        # F's time covers the 8 octaves of a batch-16 pyramid into zeroed
+        # buffers (their zero fill is front_twin_zero_fill_ms), G's the same
+        # octaves' DoG stacks, H's one frame's 16 volumes at blk 128.
+        dict(name="octave_front_twin", route="cuda",
+             source="sift_tpu_torch/csrc/octave_front.cu",
+             replaces="sift_tpu/ops/pallas_pyramid.py:513",
+             launches=launches["main"]["octave_front_twin"], max_abs_err=f_err,
+             ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_by,
+             library_ms=None, launches_by_path=by_path("octave_front_twin")),
+        dict(name="cube_pack", route="cuda", source="sift_tpu_torch/csrc/cube_pack.cu",
+             replaces="sift_tpu/ops/pallas_relayout.py:195",
+             launches=launches["fallback"]["cube_pack"], max_abs_err=g_err,
+             ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound, bound_by=g_by,
+             library_ms=None, launches_by_path=by_path("cube_pack")),
+        dict(name="twin_rows_2d", route="cuda", source="sift_tpu_torch/csrc/twin_rows.cu",
+             replaces="sift_tpu/ops/pallas_relayout.py:29",
+             launches=launches["staged"]["twin_rows_2d"], max_abs_err=h_err,
+             ms=h_ms, plain_ms=h_plain_ms, bound_ms=h_bound, bound_by=h_by,
+             library_ms=None, launches_by_path=by_path("twin_rows_2d")),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -1,18 +1,41 @@
-// Kernels A and C: the octave of the SIFT pyramid, for Hopper (sm_90a).
+// Kernels A, C and F: the octave of the SIFT pyramid, for Hopper (sm_90a).
+// One kernel template, three modes that share every arithmetic instruction
+// and differ only in what they store.
 //
-// Kernel A (octave_front_launch) replaces the TPU kernels
+// Kernel A (octave_front_launch) replaces the TPU kernel
 // sift_tpu/ops/pallas_pyramid.py::fused_octave_front (:240, body
-// _octave_front_kernel :148-200) and the value outputs of
-// fused_octave_front_twin (:513, body _octave_front_twin_kernel :346-458).
-// Per octave, from the seed image (B, H, W) f32 it writes
+// _octave_front_kernel :148-200).  Per octave, from the seed image
+// (B, H, W) f32 it writes
 //   gauss  (B, n+1, H, W)   the seed and n chained separable blurs
 //   dog    (B, n,   H, W)   gauss[i+1] - gauss[i]
 //   mask   (B, n-2, H, nbm*128) f32 0/1: |c| > thr and c >= or <= all 27
 //          values of its 3x3x3 window (centre included), interior only,
 //          lanes >= W zero
 //   counts (B, n-2, H, nbm) int32: popcount of each 128-lane mask block.
-// The TPU twin-row / cube-packed layout emission is not ported: the port's
-// gathers read these plain stacks.
+//
+// Kernel F (octave_front_twin_launch) replaces
+// sift_tpu/ops/pallas_pyramid.py::fused_octave_front_twin (:513, call :611,
+// body _octave_front_twin_kernel :346-458): the same values, but no plain
+// stack is written.  Gauss layers [g_l0, g_l0 + g_nl) go out as twin-block
+// rows in the strip-major / layer-minor order into a gather buffer gbuf
+// (B, G, 2*blk) shared by all octaves (gather.MultiRows with nls): layer s,
+// image row y, block b = columns [b*blk, (b+2)*blk), at row
+//   gbase + ((((y >> ls) * g_nl + s - g_l0) * nbt + b) << ls) + (y & (st-1))
+// so every value is stored twice, in block x / blk and, where that is >= 1,
+// in the second half of the block before it.  DoGs go out cube-packed into
+// a shared buffer pkbuf (B, P, 128) (gather.CubeRows): layer k, row y,
+// column x at lane k*sw + (x + 1 - cb*stride) of row
+//   pkbase + (((y >> ls) * nbp + cb) << ls) + (y & (st-1)),
+// cb = (x + 1) / stride, and also in block cb - 1 where the windows overlap
+// (the first sw - stride = 3 lanes of a block); a block outside [0, nbp-1]
+// is skipped.  mask and counts are A's; gauss[n-2] goes out plain as
+// ``down`` (B, H, W), the next octave's seed.  The strip st = 1 << ls is a
+// parameter of the layout (the gathers must use the same one) and has
+// nothing to do with the CTA's tile.  The kernel writes only in-image
+// values: lanes past the image, rows past H and unused lanes are whatever
+// the buffers held (the wrapper hands in zeros).  The u-row-unit view of
+// the TPU kernel is the same bytes in a contiguous buffer, and its
+// create/alias modes are Mosaic devices: neither has a counterpart here.
 //
 // Kernel C (octave_blur_launch) replaces
 // sift_tpu/ops/pallas_pyramid.py::fused_octave_blur (:675, body
@@ -27,8 +50,8 @@
 // acc = acc / sum_w; horizontal then vertical, each tap index clamped to the
 // current layer's true image border.  Built with -fmad=false and the
 // explicit _rn intrinsics, so gauss and DoG are bit-equal to the plain
-// version (and kernels A and C to each other), and mask and counts (exact
-// functions of the DoGs) equal too.
+// version (and kernels A, C and F to each other), and mask and counts
+// (exact functions of the DoGs) equal too.
 //
 // Design: one CTA per (128-column tile, 32-row strip, image).  The CTA loads
 // the seed tile plus a halo of (sum of blur radii, +1 for A) rows and
@@ -40,7 +63,10 @@
 //
 // What bounds them: the mandatory traffic is one seed read and (n+1)+n
 // output planes (A: + (n-2) mask planes) written, 48 (A: ~60) bytes per
-// pixel at n = 5: memory-bound in principle.  In this first version the
+// pixel at n = 5: memory-bound in principle.  F writes 2 * g_nl twin
+// planes, 128 / stride packed lanes per pixel column, the mask planes and
+// ``down``: about as many bytes as A at n = 5, g_nl = 3, but as two
+// scattered copies of each value (runs of up to blk, or stride, floats).  In this first version the
 // halo is recomputed per tile (a 196x100 input region for a 128x32 tile at
 // the default sigmas), and a CTA needs ~150 KB (C) or ~210 KB (A) of shared
 // memory, so one CTA of 8 warps runs per SM; the kernels are
@@ -72,12 +98,63 @@ struct FrontParams {
   int rows;   // rows of the two blur buffers
 };
 
-// kMask: kernel A (mask + counts); without it, kernel C (gauss + dog only).
-template <bool kMask>
+// Where kernel F stores: the two shared gather buffers and their layouts.
+struct TwinParams {
+  float* gbuf;   // (B, g_rows, 2 * blk)
+  float* pkbuf;  // (B, pk_rows, 128)
+  float* down;   // (B, H, W)
+  long long g_rows, gbase, pk_rows, pkbase;
+  int ls;                // log2 of the layouts' row strip
+  int blk, nbt;          // twin block width, blocks per image row
+  int g_l0, g_nl;        // stored gauss layers [g_l0, g_l0 + g_nl)
+  int stride, sw, nbp;   // packed layout (gather.cube_rows_params)
+};
+
+enum { MODE_BLUR = 0, MODE_FRONT = 1, MODE_TWIN = 2 };
+
+// Kernel F's store of gauss layer ``layer`` at (y, x): both twin blocks.
+__device__ __forceinline__ void store_twin(const TwinParams& t, size_t b,
+                                           int layer, int y, int x, float v) {
+  if (layer < t.g_l0 || layer >= t.g_l0 + t.g_nl) return;
+  const int bk = x / t.blk, c = x - bk * t.blk;
+  const long long group =
+      ((long long)(y >> t.ls) * t.g_nl + (layer - t.g_l0)) * t.nbt;
+  const long long in_strip = y & ((1 << t.ls) - 1);
+  float* img = t.gbuf + b * (size_t)t.g_rows * (2 * t.blk);
+  const long long row = t.gbase + ((group + bk) << t.ls) + in_strip;
+  img[(size_t)row * (2 * t.blk) + c] = v;
+  if (bk >= 1)
+    img[(size_t)(row - (1LL << t.ls)) * (2 * t.blk) + t.blk + c] = v;
+}
+
+// Kernel F's store of DoG layer ``k`` at (y, x): its packed block and, in
+// the overlap, the block before it.
+__device__ __forceinline__ void store_packed(const TwinParams& t, size_t b,
+                                             int k, int y, int x, float v) {
+  const int cb = (x + 1) / t.stride, j = x + 1 - cb * t.stride;
+  const long long in_strip = y & ((1 << t.ls) - 1);
+  const long long strip0 = (long long)(y >> t.ls) * t.nbp;
+  float* img = t.pkbuf + b * (size_t)t.pk_rows * 128;
+  if (cb < t.nbp) {
+    const long long row = t.pkbase + ((strip0 + cb) << t.ls) + in_strip;
+    img[(size_t)row * 128 + k * t.sw + j] = v;
+  }
+  if (cb >= 1 && cb - 1 < t.nbp && j + t.stride < t.sw) {
+    const long long row = t.pkbase + ((strip0 + cb - 1) << t.ls) + in_strip;
+    img[(size_t)row * 128 + k * t.sw + j + t.stride] = v;
+  }
+}
+
+// kMode: MODE_BLUR kernel C (gauss + dog only), MODE_FRONT kernel A (and
+// mask + counts), MODE_TWIN kernel F (A's values in the gather layouts).
+template <int kMode>
 __global__ void __launch_bounds__(NTHREADS)
 octave_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
               float* __restrict__ dog, float* __restrict__ mask,
-              int* __restrict__ counts, const FrontParams p) {
+              int* __restrict__ counts, const FrontParams p,
+              const TwinParams tw) {
+  constexpr bool kMask = kMode != MODE_BLUR;
+  constexpr bool kTwin = kMode == MODE_TWIN;
   extern __shared__ float smem[];
   float* G = smem;                    // current gauss layer
   float* T = G + p.rows * p.pitch;    // horizontal-pass result
@@ -108,7 +185,12 @@ octave_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
       const int y = ry0 + i / nc, x = rx0 + i % nc;
       const float v = src[(size_t)y * W + x];
       G[(y - oy) * pitch + (x - ox)] = v;
-      if (y >= y0 && y < y1 && x >= x0 && x < x1) gb[(size_t)y * W + x] = v;
+      if (y >= y0 && y < y1 && x >= x0 && x < x1) {
+        if (kTwin)
+          store_twin(tw, b, 0, y, x, v);
+        else
+          gb[(size_t)y * W + x] = v;
+      }
     }
   }
   __syncthreads();
@@ -160,8 +242,14 @@ octave_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
         const float d = __fsub_rn(g, *gp);
         *gp = g;
         if (y >= y0 && y < y1 && x >= x0 && x < x1) {
-          gb[(size_t)(k + 1) * plane + (size_t)y * W + x] = g;
-          db[(size_t)k * plane + (size_t)y * W + x] = d;
+          if (kTwin) {
+            store_twin(tw, b, k + 1, y, x, g);
+            store_packed(tw, b, k, y, x, d);
+            if (k + 1 == n - 2) tw.down[(size_t)b * plane + (size_t)y * W + x] = g;
+          } else {
+            gb[(size_t)(k + 1) * plane + (size_t)y * W + x] = g;
+            db[(size_t)k * plane + (size_t)y * W + x] = d;
+          }
         }
         if (kMask && y >= y0 - 1 && y <= y1 && x >= x0 - 1 && x <= x1)
           rk[(y - y0 + 1) * RING_W + (x - x0 + 1)] = d;
@@ -217,11 +305,12 @@ octave_kernel(const float* __restrict__ seed, float* __restrict__ gauss,
 // Builds the parameter block from host arrays and launches on ``stream``.
 // taps: n * MAX_TAPS floats (row k = layer k's one-sided taps), ntaps: n
 // ints, sum_w: n floats.  Returns cudaGetLastError().
-template <bool kMask>
+template <int kMode>
 static int launch(const float* seed, float* gauss, float* dog, float* mask,
                   int* counts, int B, int H, int W, int n, const float* taps,
                   const int* ntaps, const float* sum_w, float thr,
-                  void* stream) {
+                  const TwinParams& tw, void* stream) {
+  constexpr bool kMask = kMode != MODE_BLUR;
   if (n < (kMask ? 3 : 1) || n > MAX_LAYERS || B < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   FrontParams p;
@@ -247,12 +336,12 @@ static int launch(const float* seed, float* gauss, float* dog, float* mask,
   if (kMask) smem += sizeof(float) * 3 * RING_H * RING_W + sizeof(int) * TILE_H;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      octave_kernel<kMask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      octave_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(p.nbm, (H + TILE_H - 1) / TILE_H, B);
-  octave_kernel<kMask><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      seed, gauss, dog, mask, counts, p);
+  octave_kernel<kMode><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      seed, gauss, dog, mask, counts, p, tw);
   return (int)cudaGetLastError();
 }
 
@@ -262,8 +351,10 @@ extern "C" int octave_front_launch(const float* seed, float* gauss, float* dog,
                                    int W, int n, const float* taps,
                                    const int* ntaps, const float* sum_w,
                                    float thr, void* stream) {
-  return launch<true>(seed, gauss, dog, mask, counts, B, H, W, n, taps, ntaps,
-                      sum_w, thr, stream);
+  TwinParams tw;
+  memset(&tw, 0, sizeof(tw));
+  return launch<MODE_FRONT>(seed, gauss, dog, mask, counts, B, H, W, n, taps,
+                            ntaps, sum_w, thr, tw, stream);
 }
 
 // Kernel C: gauss and dog only.
@@ -271,6 +362,51 @@ extern "C" int octave_blur_launch(const float* seed, float* gauss, float* dog,
                                   int B, int H, int W, int n,
                                   const float* taps, const int* ntaps,
                                   const float* sum_w, void* stream) {
-  return launch<false>(seed, gauss, dog, nullptr, nullptr, B, H, W, n, taps,
-                       ntaps, sum_w, 0.0f, stream);
+  TwinParams tw;
+  memset(&tw, 0, sizeof(tw));
+  return launch<MODE_BLUR>(seed, gauss, dog, nullptr, nullptr, B, H, W, n,
+                           taps, ntaps, sum_w, 0.0f, tw, stream);
+}
+
+// Kernel F: gauss layers [g_l0, g_l0 + g_nl) as twin rows into gbuf
+// (B, g_rows, 2 * blk) from row gbase, DoGs cube-packed into pkbuf
+// (B, pk_rows, 128) from row pkbase, both in strips of 1 << ls rows; mask,
+// counts; down (B, H, W).  Each base must be a multiple of its layout's rows
+// per strip, and the octave's region must lie inside its buffer.
+extern "C" int octave_front_twin_launch(
+    const float* seed, float* gbuf, float* pkbuf, float* mask, int* counts,
+    float* down, int B, int H, int W, int n, const float* taps,
+    const int* ntaps, const float* sum_w, float thr, long long g_rows,
+    long long gbase, int ls, int blk, int g_l0, int g_nl, long long pk_rows,
+    long long pkbase, void* stream) {
+  if (n < 3 || n > MAX_LAYERS || H < 1 || W < 1 || ls < 0 || ls > 20 ||
+      blk < 1 || g_l0 < 0 || g_nl < 0 || g_l0 + g_nl > n + 1)
+    return (int)cudaErrorInvalidValue;
+  TwinParams tw;
+  memset(&tw, 0, sizeof(tw));
+  tw.gbuf = gbuf;
+  tw.pkbuf = pkbuf;
+  tw.down = down;
+  tw.g_rows = g_rows;
+  tw.gbase = gbase;
+  tw.pk_rows = pk_rows;
+  tw.pkbase = pkbase;
+  tw.ls = ls;
+  tw.blk = blk;
+  tw.nbt = (W + blk - 1) / blk;
+  tw.g_l0 = g_l0;
+  tw.g_nl = g_nl;
+  tw.sw = 128 / n;
+  tw.stride = tw.sw - 3;
+  const int wi = W - 2 > 1 ? W - 2 : 1;
+  tw.nbp = (wi + tw.stride - 1) / tw.stride;
+  const long long st = 1LL << ls, nstrips = (H + st - 1) / st;
+  const long long g_unit = (long long)g_nl * tw.nbt * st;
+  const long long pk_unit = (long long)tw.nbp * st;
+  if (gbase < 0 || (g_unit > 0 && gbase % g_unit != 0) ||
+      gbase + nstrips * g_unit > g_rows || pkbase < 0 ||
+      pkbase % pk_unit != 0 || pkbase + nstrips * pk_unit > pk_rows)
+    return (int)cudaErrorInvalidValue;
+  return launch<MODE_TWIN>(seed, nullptr, nullptr, mask, counts, B, H, W, n,
+                           taps, ntaps, sum_w, thr, tw, stream);
 }

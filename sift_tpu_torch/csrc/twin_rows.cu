@@ -1,7 +1,8 @@
-// Kernel E: strip-interleaved twin-block rows of one octave, for Hopper
-// (sm_90a).
+// Kernels E and H: twin-block rows, for Hopper (sm_90a).  E writes one
+// octave's rows strip-interleaved into a shared gather buffer; H (at the
+// end of this file) writes one matrix's rows in row-major order.
 //
-// Replaces the TPU kernel sift_tpu/ops/pallas_relayout.py::twin_rows_strips
+// Kernel E replaces the TPU kernel sift_tpu/ops/pallas_relayout.py::twin_rows_strips
 // (:135; one pallas_call per octave in _twin_strips_write :98-120, body
 // _twin_strips_kernel :89-95).  One launch copies an octave's rows
 // f (B, R, W) f32 (R = S * H_o flat image rows) into the shared gather
@@ -67,5 +68,47 @@ extern "C" int twin_rows_launch(const float* f, float* buf, int B, int R,
   dim3 grid((unsigned)((nrows + ROWS - 1) / ROWS), B);
   twin_rows_kernel<<<grid, dim3(2 * blk, ROWS), 0, (cudaStream_t)stream>>>(
       f, buf, R, W, nb, blk, ls, rt, base, nrows);
+  return (int)cudaGetLastError();
+}
+
+// Kernel H: row-major twin-block rows of one matrix.
+//
+// Replaces the TPU kernel sift_tpu/ops/pallas_relayout.py::twin_rows_2d
+// (:29, call :48, body _twin_kernel :23-26): mat (R, W) f32 -> out
+// (R * nb, 2 * blk), row r * nb + b = columns [b * blk, (b + 2) * blk) of
+// row r, zero past W.  It is kernel E's order with strips of one row and
+// no batch, written out: the reader is gather.BlockRows, and the row-major
+// gather.MultiRows of build_multi_rows.  Bit-equal to its plain version
+// sift_tpu_torch/ops/twin_rows.py::twin_rows_2d_plain.
+//
+// Same design and the same bound as E: one thread per output element, a
+// CTA writes ROWS whole output rows; it reads R * W floats (each twice) and
+// writes R * nb * 2 * blk, and is bound by those bytes.
+//
+// grid (ceil(R * nb / ROWS)), block (2 * blk, ROWS).
+__global__ void twin_rows_2d_kernel(const float* __restrict__ mat,
+                                    float* __restrict__ out, int W, int nb,
+                                    int blk, long long nrows) {
+  const long long o = (long long)blockIdx.x * ROWS + threadIdx.y;
+  if (o >= nrows) return;
+  const int c = threadIdx.x;  // column in the twin row, < 2 * blk
+  const long long r = o / nb;
+  const int b = (int)(o - r * nb);
+  const int x = b * blk + c;
+  out[o * (size_t)(2 * blk) + c] = x < W ? mat[r * (size_t)W + x] : 0.0f;
+}
+
+// mat (R, W) -> out (R * nb, 2 * blk), nb = ceil(W / blk).  Returns
+// cudaGetLastError().
+extern "C" int twin_rows_2d_launch(const float* mat, float* out, int R, int W,
+                                   int blk, void* stream) {
+  if (R < 1 || W < 1 || blk < 1 || 2 * blk * ROWS > 1024)
+    return (int)cudaErrorInvalidValue;
+  const int nb = (W + blk - 1) / blk;
+  const long long nrows = (long long)R * nb;
+  const long long nblocks = (nrows + ROWS - 1) / ROWS;
+  if (nblocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  twin_rows_2d_kernel<<<(unsigned)nblocks, dim3(2 * blk, ROWS), 0,
+                        (cudaStream_t)stream>>>(mat, out, W, nb, blk, nrows);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ from sift_tpu_torch.config import (
     SiftConfig,
 )
 from sift_tpu_torch.models.orient import max_size_octave
-from sift_tpu_torch.ops.gather import StackSpace, gather_patches, lut, padded_chunks
+from sift_tpu_torch.ops.gather import build_multi_rows, gather_patches, lut, padded_chunks
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -173,8 +173,10 @@ def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
 def compute_octave_descriptors(gauss: torch.Tensor, kp: Keypoints, octave: int,
                                cfg: SiftConfig) -> torch.Tensor:
     """The staged path's one-octave descriptors: gauss (S, H, W), kp (n,)
-    lanes of octave ``octave`` -> (n, 128) uint8."""
+    lanes of octave ``octave`` -> (n, 128) uint8, gathered from the octave's
+    row-major twin rows as in the JAX package (kernel H in float32 on the
+    card)."""
     return compute_descriptors_all(
-        StackSpace.build([gauss[None]]), kp.map(lambda a: a[None]), cfg,
-        octave_of_volume=(octave,),
+        build_multi_rows([gauss]),
+        kp.map(lambda a: a[None]), cfg, octave_of_volume=(octave,),
     )[0]

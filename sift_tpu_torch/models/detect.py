@@ -8,8 +8,8 @@ refined by the reference's <= 5-step Newton loop (src/sift.cpp:330-436) as
 masked batched steps over lane buffers, with the cascade that compacts the
 still-moving minority before later steps; the staged path refines one
 octave at a time without the cascade (``refine_octave_keypoints``).  Lanes
-carry a leading batch dimension (B, n); cubes come from the plain DoG
-stacks (ops/gather.py).
+carry a leading batch dimension (B, n); cubes come from a gather space of
+the DoGs (ops/gather.py): cube-packed rows, twin rows or the plain stacks.
 All arithmetic keeps the reference's expression order, so the float64
 profile is bit-faithful; cube values are /255 like get_pixel_cube
 (src/sift.cpp:39).
@@ -22,7 +22,7 @@ import math
 import torch
 
 from sift_tpu_torch.config import MAX_CONVERGENCE_STEPS, SiftConfig
-from sift_tpu_torch.ops.gather import StackSpace, compact_mask, gather_cubes, lut
+from sift_tpu_torch.ops.gather import build_block_rows, compact_mask, gather_cubes, lut
 from sift_tpu_torch.ops.octave_front import extremum_mask
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, to_i32, xdiv
@@ -353,8 +353,9 @@ def refine_octave_keypoints(dog, zyx, valid, octave: int, cfg: SiftConfig):
     all MAX_CONVERGENCE_STEPS steps on every lane, no cascade.  ``dog``:
     (D, H, W); ``zyx`` (n, 3), ``valid`` (n,).  Returns (keypoints (n,),
     layer offset off0 (n,)), lane for lane what ``refine_keypoints_all``
-    gives for the same lanes."""
-    space = StackSpace.build([dog[None]])
+    gives for the same lanes.  Cubes come from the octave's row-major twin
+    rows, as in the JAX package (kernel H in float32 on the card)."""
+    space = build_block_rows(dog)
     n = valid.shape[0]
     zero = torch.zeros(n, dtype=torch.int64, device=valid.device)
     state = _newton_refine(

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from sift_tpu_torch.config import M_PI2, ORI_SMOOTH_ITERATIONS, SiftConfig
-from sift_tpu_torch.ops.gather import StackSpace, gather_patches, lut, padded_chunks
+from sift_tpu_torch.ops.gather import build_multi_rows, gather_patches, lut, padded_chunks
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -170,9 +170,11 @@ def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
 
 def orient_octave_keypoints(gauss: torch.Tensor, kp: Keypoints, octave: int, cfg: SiftConfig):
     """The staged path's one-octave orientation: gauss (S, H, W), kp (n,)
-    lanes of octave ``octave`` -> (candidates (n * slots,), max_peaks)."""
+    lanes of octave ``octave`` -> (candidates (n * slots,), max_peaks),
+    gathered from the octave's row-major twin rows as in the JAX package
+    (kernel H in float32 on the card)."""
     cand, max_peaks = orient_all(
-        StackSpace.build([gauss[None]]), kp.map(lambda a: a[None]), cfg,
-        octave_of_volume=(octave,),
+        build_multi_rows([gauss]),
+        kp.map(lambda a: a[None]), cfg, octave_of_volume=(octave,),
     )
     return cand.map(lambda a: a[0]), max_peaks

@@ -1,13 +1,20 @@
 """End-to-end SIFT: batched detect + describe (src/sift.cpp:712-776).
 
 Counterpart of ``sift_tpu/models/sift.py``.  ``detect_and_describe_batch``
-takes one of three routes (``route_of``), chosen as the JAX package chooses:
+takes one of three routes (``route_of``), chosen as the JAX package chooses;
+``run_route`` runs any of the four by name:
 
-* ``"front"`` (float32, window 3, on the card by default; ``use_front``):
-  1. ``front``: initial image, then per octave kernel A (blur chain, DoG,
-     extremum mask, popcounts) and the next octave's seed;
+* ``"front_twin"`` (float32, window 3, on the card by default;
+  ``use_front``), the route of the JAX entry point:
+  1. ``front_twin``: initial image, then per octave kernel F (blur chain,
+     DoG, extremum mask, popcounts) writes the gauss twin rows and the
+     cube-packed DoG rows into two shared gather buffers, and the next
+     octave's seed; no plain stack exists;
   2. ``detect_refine``: counts-assisted extrema compaction + cascaded
-     Newton refinement, compacted to ``kp_cap``;
+     Newton refinement over the ``CubeRows``, compacted to ``kp_cap``;
+* ``"front"``: the same with kernel A and plain stacks (``front``, then
+  ``detect_refine`` over their ``StackSpace``), the JAX package's
+  ``_jit_front_batch``; reached only through ``run_route``;
 * the non-front route (float64, another window, or the CPU by default):
   1. ``pyramids``: initial image, then ``build_pyramids`` (kernel C per
      octave, or the blur chain through kernel D);
@@ -17,14 +24,16 @@ takes one of three routes (``route_of``), chosen as the JAX package chooses:
   from the twin rows that kernel E writes, as the JAX package's does from
   ``twin_rows_strips``; else (``"stacks"``) from the plain stacks;
 
-and then on all three:
+and then on every route, over the route's gauss gather space:
   3. ``orient``: orientation candidates, compacted to ``ori_cap``;
   4. ``dedup``: the reference's sort + unique, compacted;
   5. ``describe``: descriptors.
 
 Each stage is a plain function on tensors, so a caller can time them one
 by one.  ``detect_stages`` is the staged path: one image, octave by octave,
-every stage's output kept (the parity and debugging view).
+every stage's output kept (the parity and debugging view); its stages
+gather from row-major twin rows (``gather.build_block_rows`` /
+``build_multi_rows``, kernel H in float32 on the card).
 """
 
 from __future__ import annotations
@@ -49,11 +58,15 @@ from sift_tpu_torch.models.detect import (
 )
 from sift_tpu_torch.models.orient import orient_all, orient_octave_keypoints
 from sift_tpu_torch.models.pyramid import (
+    FrontTwinPlan,
+    blur_half_kernels,
     build_pyramids,
     compute_initial_image,
     front_pyramids,
+    front_twin_pyramids,
 )
-from sift_tpu_torch.ops.gather import StackSpace, compact_mask
+from sift_tpu_torch.ops.gather import StackSpace, compact_mask, cube_rows_params
+from sift_tpu_torch.ops.octave_front import front_twin_strip
 from sift_tpu_torch.ops.twin_rows import twin_rows_strips
 from sift_tpu_torch.utils import keypoints as kputil
 from sift_tpu_torch.utils.keypoints import Keypoints
@@ -76,8 +89,8 @@ def octaves_for(imgs: torch.Tensor, cfg: SiftConfig) -> int:
 
 def use_front(cfg: SiftConfig, device) -> bool:
     """The batch route (the JAX package's ``_use_front``, with CUDA in the
-    TPU's place): the front route needs window 3 and float32, and runs when
-    ``use_octave_kernel`` is True, or None on the card."""
+    TPU's place): the front-twin route needs window 3 and float32, and runs
+    when ``use_octave_kernel`` is True, or None on the card."""
     return cfg.window_size == 3 and kernel_on(cfg.use_octave_kernel, cfg.dtype, device)
 
 
@@ -89,14 +102,15 @@ def use_twin_rows(cfg: SiftConfig, device) -> bool:
 
 
 def route_of(cfg: SiftConfig, device) -> str:
-    """``"front"``, ``"twin_rows"`` or ``"stacks"`` (see the module doc)."""
+    """``"front_twin"``, ``"twin_rows"`` or ``"stacks"`` (see the module
+    doc)."""
     if use_front(cfg, device):
-        return "front"
+        return "front_twin"
     return "twin_rows" if use_twin_rows(cfg, device) else "stacks"
 
 
-# Twin block width of the non-front route's gather spaces: the JAX
-# package's _REFINE_BLK for the DoGs and its gauss rows' width.
+# Twin block width of the batch routes' gather spaces: the JAX package's
+# _REFINE_BLK for the DoGs and its gauss rows' width.
 TWIN_BLK = 64
 
 
@@ -113,16 +127,64 @@ def front(imgs: torch.Tensor, cfg: SiftConfig):
     return front_pyramids(initial, cfg, octaves_for(imgs, cfg))
 
 
+def front_twin_plan(cfg: SiftConfig, octaves: int, h1: int, w1: int,
+                    strip_fn=front_twin_strip) -> FrontTwinPlan:
+    """The front-twin route's buffer layout for (h1, w1) initial images
+    (the JAX package's ``_front_twin_plan`` and the packed-row bases of its
+    ``_jit_front_twin_batch``, number for number).  ``strip_fn(shape,
+    half_kernels, g_nl, blk, dtype)`` gives each octave's row strip, or None
+    for an octave that takes the fallback."""
+    hks = blur_half_kernels(cfg)
+    n = len(hks)
+    g_l0, g_nl = 1, n - 2  # stored gauss layers [1, intervals]
+    plan, gacc, pk_bases, pk_nbps, pkacc = [], 0, [], [], 0
+    h, w = h1, w1
+    for _ in range(octaves):
+        nbt = -(-w // TWIN_BLK)
+        st = strip_fn((h, w), hks, g_nl, TWIN_BLK, cfg.dtype)
+        fits = st is not None
+        if st is None:  # fallback octave: any power-of-two strip works
+            st = min(128, max(32, 1 << max(h - 1, 7).bit_length()))
+        nstrips = -(-h // st)
+        g_unit = g_nl * nbt * st
+        gacc = -(-gacc // g_unit) * g_unit
+        plan.append((h, w, st, fits, nbt, gacc))
+        gacc += nstrips * g_unit
+        nbp = cube_rows_params(n, w)[2]
+        pkacc = -(-pkacc // (nbp * st)) * (nbp * st)
+        pk_bases.append(pkacc)
+        pk_nbps.append(nbp)
+        pkacc += nstrips * nbp * st
+        h, w = h // 2, w // 2
+    u = min(8, *(p[2] for p in plan))
+    return FrontTwinPlan(
+        octaves=tuple(plan), g_total=-(-gacc // (8 * u)) * (8 * u), unit=u, blk=TWIN_BLK,
+        g_l0=g_l0, g_nl=g_nl, pk_bases=tuple(pk_bases), pk_nbps=tuple(pk_nbps), pk_total=pkacc,
+    )
+
+
+def front_twin(imgs: torch.Tensor, cfg: SiftConfig, plan: FrontTwinPlan | None = None):
+    """Front-twin route, stage 1: (gauss ``MultiRows``, DoG ``CubeRows``,
+    masks, counts).  ``plan``: a layout other than ``front_twin_plan``'s
+    (callers that stage the route by hand, to send octaves through the
+    fallback)."""
+    initial = compute_initial_image(imgs, cfg)
+    if plan is None:
+        plan = front_twin_plan(cfg, octaves_for(imgs, cfg), *initial.shape[1:])
+    return front_twin_pyramids(initial, cfg, plan)
+
+
 def pyramids(imgs: torch.Tensor, cfg: SiftConfig):
     """Non-front route, stage 1: (gaussians, dogs), per-octave lists."""
     initial = compute_initial_image(imgs, cfg)
     return build_pyramids(initial, cfg, octaves_for(imgs, cfg))
 
 
-def detect_refine(dogs, masks, counts, cfg: SiftConfig):
-    """Front route, stage 2: (keypoints (B, kp_cap), counts dict)."""
-    return _refine(StackSpace.build(dogs),
-                   *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
+def detect_refine(dog_space, masks, counts, cfg: SiftConfig):
+    """Front and front-twin routes, stage 2: (keypoints (B, kp_cap), counts
+    dict), refined over a gather space of the DoGs (the front-twin route's
+    ``CubeRows``, the front route's ``StackSpace``)."""
+    return _refine(dog_space, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
 
 
 def _detect_refine_fused(dogs, cfg: SiftConfig, twin_rows: bool):
@@ -176,22 +238,30 @@ def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
     return (out, counts) if return_counts else out
 
 
-def run_route(imgs: torch.Tensor, cfg: SiftConfig, route: str):
-    """The stages of one batch route (``"front"``, ``"twin_rows"`` or
-    ``"stacks"``) on a (B, H, W, C) tensor, whatever ``route_of`` would
-    choose: (final buffer, counts dict)."""
-    if route == "front":
+def run_route(imgs: torch.Tensor, cfg: SiftConfig, route: str,
+              plan: FrontTwinPlan | None = None):
+    """The stages of one batch route (``"front_twin"``, ``"front"``,
+    ``"twin_rows"`` or ``"stacks"``) on a (B, H, W, C) tensor, whatever
+    ``route_of`` would choose: (final buffer, counts dict).  ``plan``: see
+    ``front_twin``."""
+    if route == "front_twin":
+        gsp, dsp, masks, counts = front_twin(imgs, cfg, plan)
+        kp, c_det = detect_refine(dsp, masks, counts, cfg)
+        del dsp, masks, counts
+    elif route == "front":
         gaussians, dogs, masks, counts = front(imgs, cfg)
-        kp, c_det = detect_refine(dogs, masks, counts, cfg)
-        del masks, counts
+        kp, c_det = detect_refine(StackSpace.build(dogs), masks, counts, cfg)
+        del dogs, masks, counts
+        gsp = StackSpace.build(gaussians)
+        del gaussians
     elif route in ("twin_rows", "stacks"):
         gaussians, dogs = pyramids(imgs, cfg)
         kp, c_det = _detect_refine_fused(dogs, cfg, route == "twin_rows")
+        del dogs
+        gsp = gather_space(gaussians, route == "twin_rows")
+        del gaussians
     else:
         raise ValueError(f"unknown route {route!r}")
-    del dogs
-    gsp = gather_space(gaussians, route == "twin_rows")
-    del gaussians
     cand, c_ori = orient(gsp, kp, cfg)
     return describe(gsp, dedup(cand, cfg), cfg), {**c_det, **c_ori}
 

@@ -1,26 +1,34 @@
 """Mask compaction, tiny-table lookups and the gather spaces.
 
-A gather space holds the per-octave (B, S, H_o, W_o) stacks of a batch in
-one buffer, so one gather serves every octave; cubes and patches are then
-one element gather each.  Two layouts:
+A gather space holds the per-octave (S, H_o, W_o) volumes of a batch in one
+buffer, so one gather serves every octave; cubes and patches are then one
+element gather each.  The layouts, each the counterpart of one in the JAX
+package's ``ops/gather.py``:
 
 * ``StackSpace``: the plain stacks, flattened one after another;
-* ``MultiRows``: the strip-interleaved twin-block rows that kernel E
-  (ops/twin_rows.py) writes, the JAX package's ``gather.MultiRows`` with
-  ``shp`` set.  The JAX package's non-front route builds it on the
-  accelerator in float32, and so does the port's on the card.
+* ``BlockRows``: row-major twin-block rows of one (S, H, W) volume
+  (``build_block_rows``; the staged path's DoG space);
+* ``MultiRows``: twin-block rows of several volumes in one of three row
+  orders: row-major (``build_multi_rows``; the staged path's gauss space),
+  strip-interleaved (kernel E, ops/twin_rows.py; the non-front route) or
+  strip-major / layer-minor holding only some layers (kernel F,
+  ops/octave_front.py; the front-twin route's gauss space);
+* ``CubeRows``: cube-packed DoG rows, every layer of a window of ``sw``
+  columns in one 128-lane row (kernels F and G; the front-twin route's DoG
+  space).
 
-Both answer ``index(img, oct_id, s, y, x, x0)``: the flat offset of element
-(s, y, x) of each lane's volume.  ``x0`` is the lane's window start, which
-picks the twin block as the JAX package's gathers pick it.  The JAX
-package's other TPU layouts (row units, cube-packed DoG rows, the front
-kernel's emission) are not ported yet.
+All answer ``index(img, oct_id, s, y, x, x0)``: the flat offset into
+``flat`` of element (s, y, x) of each lane's volume.  ``x0`` is the lane's
+window start, which picks the twin (or packed) block as the JAX package's
+gathers pick it.  Every layout is pure data movement: a gather reads the
+same values from each.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -110,15 +118,78 @@ class StackSpace(_Space):
         return origin + (s * self.table(1, oct_id) + y) * self.table(2, oct_id) + x
 
 
+def _twin_block(x0, x, blk: int, nb):
+    """The twin block of a window starting at column ``x0``, as the JAX
+    package's gathers pick it; a column past that twin (a window wider than
+    blk + 1) takes the block that holds it in its second half."""
+    return torch.maximum(torch.clamp(x0.long().clamp_min(0) // blk, max=nb - 1), x // blk - 1)
+
+
+@dataclasses.dataclass
+class BlockRows(_Space):
+    """Row-major twin-block rows of one (S, H, W) volume.
+
+    ``rows`` is (S * H * nb, 2 * blk): row ``(s * H + y) * nb + b`` holds
+    columns [b * blk, (b + 2) * blk) of image row (s, y), zero past W.  One
+    volume: ``img`` and ``oct_id`` of ``index`` are not read.
+    """
+
+    rows: torch.Tensor
+    shape: tuple
+    blk: int
+    nb: int
+
+    @property
+    def shapes(self) -> tuple:
+        return (self.shape,)
+
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.rows.reshape(-1)
+
+    def index(self, img, oct_id, s, y, x, x0):
+        b = _twin_block(x0, x, self.blk, self.nb)
+        row = (s * self.shape[1] + y) * self.nb + b
+        return row * (2 * self.blk) + x - b * self.blk
+
+
+def build_block_rows(vol: torch.Tensor, blk: int = 128) -> BlockRows:
+    """(S, H, W) volume -> its ``BlockRows``.  A float32 volume goes through
+    kernel H's wrapper (ops/twin_rows.twin_rows_2d: the kernel on the card,
+    its plain version on the CPU); the kernels take float32 only, so any
+    other type takes the plain pad / reshape / concatenation.  The same
+    rows either way."""
+    from sift_tpu_torch.ops.twin_rows import twin_rows_2d, twin_rows_2d_plain
+
+    s, h, w = vol.shape
+    fn = twin_rows_2d if vol.dtype == torch.float32 else twin_rows_2d_plain
+    rows = fn(vol.reshape(s * h, w).contiguous(), blk)
+    return BlockRows(rows=rows, shape=(s, h, w), blk=blk, nb=-(-w // blk))
+
+
 @dataclasses.dataclass
 class MultiRows(_Space):
-    """Strip-interleaved twin-block rows of per-octave stacks.
+    """Twin-block rows of several (S, H_o, W_o) volumes in one buffer.
 
-    ``rows`` is (B, RT, 2 * blk).  With r = s * H_o + y the flat image row,
-    octave ``o``'s row (s, y), block b (columns [b * blk, (b + 2) * blk),
-    zero past W_o) is row ``bases[o] + (((r >> ls) * nbs[o] + b) << ls) +
-    (r & (st - 1))`` of each image, ls = shp[o] and st = 1 << ls.  Any
-    window of up to blk + 1 columns from x0 lies in block x0 // blk.
+    ``rows`` is ([B,] RT, 2 * blk); image ``i``'s rows start at ``i * RT``.
+    Block b of image row (s, y) of volume ``o`` holds columns [b * blk,
+    (b + 2) * blk) of that row (zero past W_o), so any window of up to
+    blk + 1 columns from x0 lies in block x0 // blk.  With nb = nbs[o] and
+    H = shapes[o][1], its row from ``bases[o]`` is, by row order:
+
+    * row-major (``shp`` None; ``build_multi_rows``): (s * H + y) * nb + b;
+    * strip-interleaved (``shp`` set; kernel E): with r = s * H + y, ls =
+      shp[o], st = 1 << ls: (((r >> ls) * nb + b) << ls) + (r & (st - 1));
+    * strip-major / layer-minor (``nls`` set with ``shp``; kernel F):
+      ((((y >> ls) * nls[o] + s) * nb + b) << ls) + (y & (st - 1)).  Only
+      layers [l0, l0 + nls[o]) are stored, and ``bases`` carry a shift of
+      -l0 * nb * st so that the formula takes the stack's own layer index.
+      A layer outside the stored range is clamped into it for the read
+      (only lanes whose values are never used can hold one).
+
+    ``unit``: with the third order, ``unit`` consecutive twin rows (a power
+    of two dividing every strip) are one contiguous run; ``rows_u`` is that
+    view of the same bytes, ([B,] RT / unit, unit * 2 * blk).
     """
 
     rows: torch.Tensor
@@ -126,26 +197,178 @@ class MultiRows(_Space):
     blk: int
     nbs: tuple
     bases: tuple
-    shp: tuple
+    shp: tuple | None = None
+    nls: tuple | None = None
+    l0: int = 0
+    unit: int = 1
+
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.rows.reshape(-1)
+
+    @property
+    def rows_u(self) -> torch.Tensor:
+        lead = self.rows.shape[:-2]
+        return self.rows.view(*lead, self.rows.shape[-2] // self.unit, self.unit * 2 * self.blk)
+
+    def index(self, img, oct_id, s, y, x, x0):
+        nb = self.lut("nbs", self.nbs, oct_id)
+        b = _twin_block(x0, x, self.blk, nb)
+        if self.shp is None:
+            local = (s * self.table(1, oct_id) + y) * nb + b
+        else:
+            ls = self.lut("shp", self.shp, oct_id)
+            if self.nls is None:
+                r = s * self.table(1, oct_id) + y
+                group = (r >> ls) * nb
+            else:
+                nl = self.lut("nls", self.nls, oct_id)
+                r = y
+                group = ((y >> ls) * nl + torch.minimum(s.clamp_min(self.l0), self.l0 + nl - 1)) * nb
+            local = ((group + b) << ls) + (r & ((1 << ls) - 1))
+        row = img.long() * self.rows.shape[-2] + self.lut("bases", self.bases, oct_id) + local
+        return row * (2 * self.blk) + x - b * self.blk
+
+
+def build_multi_rows(vols: list[torch.Tensor], blk: int = 128) -> MultiRows:
+    """(S, H_o, W_o) volumes -> their row-major ``MultiRows``: each
+    volume's ``build_block_rows`` rows, one after another."""
+    brs = [build_block_rows(v, blk) for v in vols]
+    bases, acc = [], 0
+    for br in brs:
+        bases.append(acc)
+        acc += br.rows.shape[0]
+    return MultiRows(
+        rows=torch.cat([br.rows for br in brs], dim=0),
+        shapes=tuple(br.shape for br in brs), blk=blk,
+        nbs=tuple(br.nb for br in brs), bases=tuple(bases),
+    )
+
+
+def twin_strided(vol_b: torch.Tensor, blk: int, st: int, l0: int = 0,
+                 nl: int | None = None) -> torch.Tensor:
+    """(B, S, H, W) -> (B, nstrips * nl * nb * st, 2 * blk): layers
+    [l0, l0 + nl) as twin rows in the strip-major / layer-minor order (the
+    JAX package's ``twin_strided_xla``), zero past W and on rows past H."""
+    b, s, h, w = vol_b.shape
+    nl = s - l0 if nl is None else nl
+    nb = -(-w // blk)
+    nstrips = -(-h // st)
+    v = torch.zeros((b, nl, nstrips * st, (nb + 1) * blk), dtype=vol_b.dtype, device=vol_b.device)
+    v[:, :, :h, :w] = vol_b[:, l0:l0 + nl]
+    a = v.reshape(b, nl, nstrips, st, nb + 1, blk)
+    twin = torch.cat([a[..., :-1, :], a[..., 1:, :]], dim=-1)
+    return twin.permute(0, 2, 1, 4, 3, 5).reshape(b, nstrips * nl * nb * st, 2 * blk)
+
+
+def cube_rows_params(n_layers: int, w: int) -> tuple[int, int, int]:
+    """(stride, sw, nbp) of the packed layout of an n_layers-deep octave
+    of width w: ``sw`` stored columns per block, ``stride`` of them its
+    own, ``nbp`` blocks."""
+    sw = 128 // n_layers
+    stride = sw - 3
+    # ceil((w - 2) / stride), not ceil((w - 3) / stride): interior x goes up
+    # to w - 2, which lies in block (w - 3) // stride; when (w - 3) % stride
+    # == 0 that is one past ceil((w - 3) / stride) - 1, and clamping the
+    # block would read the dx = +1 lane from the next DoG layer's lanes
+    # (w = 69 at stride 22).
+    nbp = max(1, -(-max(w - 2, 1) // stride))
+    return stride, sw, nbp
+
+
+def cube_rows_plain(d: torch.Tensor, strip: int = 1) -> torch.Tensor:
+    """(B, S, H, W) DoG stack -> (B, ceil(H / strip) * strip * nbp, 128)
+    cube-packed rows in the strip-block-major order of ``CubeRows`` (the JAX
+    package's ``cube_rows_xla``; ``strip`` a power of two, 1 = y-major).
+    Lanes >= S * sw, columns outside the image and rows past H are zero."""
+    if strip & (strip - 1):
+        raise ValueError("cube_rows_plain: strip must be a power of two")
+    b, s, h, w = d.shape
+    stride, sw, nbp = cube_rows_params(s, w)
+    nstr = -(-h // strip)
+    # Column c of dp is image column c - 1; block cb's window starts at
+    # dp column cb * stride.
+    dp = torch.zeros((b, s, nstr * strip, (nbp - 1) * stride + sw), dtype=d.dtype, device=d.device)
+    dp[:, :, :h, 1:1 + w] = d  # nbp * stride >= w - 2: the image fits
+    win = dp.unfold(-1, sw, stride)  # (b, s, hp, nbp, sw)
+    lanes = torch.zeros((b, nstr * strip, nbp, 128), dtype=d.dtype, device=d.device)
+    lanes[..., : s * sw] = win.permute(0, 2, 3, 1, 4).reshape(b, nstr * strip, nbp, s * sw)
+    lanes = lanes.reshape(b, nstr, strip, nbp, 128).transpose(2, 3)
+    return lanes.reshape(b, nstr * nbp * strip, 128)
+
+
+@dataclasses.dataclass
+class CubeRows(_Space):
+    """Cube-packed DoG rows: all layers of a column window in one row.
+
+    ``rows`` is ([B,] P, 128).  Row (y, cb) of octave ``o`` holds, at lane
+    z * sw + (col - (cb * stride - 1)), layer z of columns [cb * stride - 1,
+    cb * stride - 1 + sw); windows overlap by sw - stride = 3 columns, so
+    the +-1 neighbourhood of any interior x lies in block (x - 1) // stride.
+    Octave ``o`` is tiled into strips of 1 << lss[o] image rows, and row
+    (y, cb) is ``bases[o] + (((y >> ls) * nbps[o] + cb) << ls) + (y & (st -
+    1))``; ls = 0 is the y-major order.  Unused lanes, columns outside the
+    image and rows past H are zero.
+    """
+
+    rows: torch.Tensor
+    shapes: tuple
+    nbps: tuple
+    bases: tuple
+    stride: int
+    sw: int
+    lss: tuple
 
     @property
     def flat(self) -> torch.Tensor:
         return self.rows.reshape(-1)
 
     def index(self, img, oct_id, s, y, x, x0):
-        nb = self.lut("nbs", self.nbs, oct_id)
-        ls = self.lut("shp", self.shp, oct_id)
-        # The block of the window start, as the JAX package's gathers pick
-        # it; a column past that twin (a window wider than blk + 1) takes
-        # the block that holds it in its second half.
-        b = torch.maximum(torch.minimum(x0.long().clamp_min(0) // self.blk, nb - 1),
-                          x // self.blk - 1)
-        r = s * self.table(1, oct_id) + y
+        nbp = self.lut("nbps", self.nbps, oct_id)
+        ls = self.lut("lss", self.lss, oct_id)
+        cb = torch.minimum(x0.long().clamp_min(0) // self.stride, nbp - 1)
         row = (
-            img.long() * self.rows.shape[1] + self.lut("bases", self.bases, oct_id)
-            + (((r >> ls) * nb + b) << ls) + (r & ((1 << ls) - 1))
+            img.long() * self.rows.shape[-2] + self.lut("bases", self.bases, oct_id)
+            + (((y >> ls) * nbp + cb) << ls) + (y & ((1 << ls) - 1))
         )
-        return row * (2 * self.blk) + x - b * self.blk
+        return row * self.rows.shape[-1] + s * self.sw + x - (cb * self.stride - 1)
+
+
+def from_reference_space(space, batch: int | None = None, l0: int = 0):
+    """A gather space of the JAX package (its ``BlockRows``, ``MultiRows``
+    or ``CubeRows``: arrays and static fields) as the port's, over the very
+    same buffer, so that both packages' gathers can be held to each other.
+
+    ``batch``: the images in a buffer whose leading axes the JAX space has
+    flattened (a ``MultiRows`` that carries only ``rows_u``).  ``l0``: the
+    first stored layer of a layer-minor ``MultiRows`` (its bases carry the
+    shift, its fields do not name it).
+    """
+    def rows_of(a, width):
+        t = torch.from_numpy(np.array(a))
+        return t.reshape(batch, -1, width) if batch is not None else t.reshape(
+            *t.shape[:-2], -1, width)
+
+    kind = type(space).__name__
+    if kind == "BlockRows":
+        return BlockRows(rows=rows_of(space.rows, 2 * space.blk), shape=tuple(space.shape),
+                         blk=space.blk, nb=space.nb)
+    if kind == "MultiRows":
+        src = space.rows if space.rows is not None else space.rows_u
+        return MultiRows(
+            rows=rows_of(src, 2 * space.blk), shapes=tuple(map(tuple, space.shapes)),
+            blk=space.blk, nbs=tuple(space.nbs), bases=tuple(space.bases),
+            shp=None if space.shp is None else tuple(space.shp),
+            nls=None if space.nls is None else tuple(space.nls),
+            l0=l0, unit=space.unit,
+        )
+    if kind == "CubeRows":
+        return CubeRows(
+            rows=rows_of(space.rows, 128), shapes=tuple(map(tuple, space.shapes)),
+            nbps=tuple(space.nbps), bases=tuple(space.bases), stride=space.stride,
+            sw=space.sw, lss=tuple(space.lss) or (0,) * len(space.shapes),
+        )
+    raise TypeError(f"from_reference_space: not a gather space: {kind}")
 
 
 def gather_cubes(sp, img, oct_id, zyx) -> torch.Tensor:

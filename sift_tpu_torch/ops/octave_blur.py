@@ -34,6 +34,18 @@ def octave_blur_plain(seed: torch.Tensor, half_kernels, blur=separable_blur):
     return g, g[..., 1:, :, :] - g[..., :-1, :, :]
 
 
+def tap_arrays(half_kernels):
+    """The blur chain as csrc/octave_front.cu takes it: (taps (n, MAX_TAPS)
+    float32, ntaps (n,) int32, sum_w (n,) float32) host arrays."""
+    n = len(half_kernels)
+    taps = np.zeros((n, MAX_TAPS), np.float32)
+    for k, hk in enumerate(half_kernels):
+        taps[k, : len(hk)] = hk
+    ntaps = np.asarray([len(hk) for hk in half_kernels], np.int32)
+    sum_w = np.asarray([half_kernel_weight_sum(list(hk)) for hk in half_kernels], np.float32)
+    return taps, ntaps, sum_w
+
+
 def octave_blur(seed: torch.Tensor, half_kernels):
     """Same contract as ``octave_blur_plain``; kernel C on a CUDA tensor."""
     if seed.device.type == "cpu":
@@ -48,11 +60,7 @@ def octave_blur(seed: torch.Tensor, half_kernels):
     bsz, h, w = seed.shape
     gauss = torch.empty((bsz, n + 1, h, w), dtype=torch.float32, device=seed.device)
     dogs = torch.empty((bsz, n, h, w), dtype=torch.float32, device=seed.device)
-    taps = np.zeros((n, MAX_TAPS), np.float32)
-    for k, hk in enumerate(half_kernels):
-        taps[k, : len(hk)] = hk
-    ntaps = np.asarray([len(hk) for hk in half_kernels], np.int32)
-    sum_w = np.asarray([half_kernel_weight_sum(list(hk)) for hk in half_kernels], np.float32)
+    taps, ntaps, sum_w = tap_arrays(half_kernels)
     fn = _launcher()
     with torch.cuda.device(seed.device):
         stream = torch.cuda.current_stream(seed.device).cuda_stream

@@ -1,13 +1,22 @@
-"""The strip-interleaved twin-row gather space of per-octave stacks.
+"""Twin-block rows: the strip-interleaved gather space of per-octave
+stacks, and the row-major rows of one volume.
 
 ``twin_rows_strips`` is the wrapper of kernel E (``csrc/twin_rows.cu``),
 the port of the TPU kernel ``sift_tpu/ops/pallas_relayout.py::
 twin_rows_strips``: one launch per octave writes that octave's twin rows
 into one shared buffer, and the result is a ``gather.MultiRows``.  Its
 plain version is ``twin_rows_strips_plain``: each octave's rows through
-pad, reshape and concatenation (``twin_rows_plain``).  A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.  Pure data
-movement: the gathers read the same values as from ``gather.StackSpace``.
+pad, reshape and concatenation (``twin_rows_plain``).
+
+``twin_rows_2d`` is the wrapper of kernel H (``twin_rows_2d_launch`` in the
+same source), the port of ``pallas_relayout.py::twin_rows_2d``: the
+row-major twin rows of one (R, W) matrix, which ``gather.build_block_rows``
+builds a float32 volume's rows with.  Its plain version is
+``twin_rows_2d_plain``.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.  Pure data movement: the gathers read the same values as from
+``gather.StackSpace``.
 """
 
 from __future__ import annotations
@@ -111,6 +120,39 @@ def twin_rows_strips(stacks: list[torch.Tensor], blk: int = 64) -> MultiRows:
 
 
 twin_rows_strips.launches = 0
+
+
+def twin_rows_2d_plain(mat: torch.Tensor, blk: int) -> torch.Tensor:
+    """(R, W) -> (R * nb, 2 * blk): row r * nb + b holds columns [b * blk,
+    (b + 2) * blk) of row r, zero past W (strips of one row)."""
+    return twin_rows_plain(mat[None], blk, 0, mat.shape[0])[0]
+
+
+def twin_rows_2d(mat: torch.Tensor, blk: int) -> torch.Tensor:
+    """Same contract as ``twin_rows_2d_plain``; kernel H on a CUDA tensor."""
+    if mat.device.type == "cpu":
+        return twin_rows_2d_plain(mat, blk)
+    if mat.device.type != "cuda":
+        raise ValueError(f"twin_rows_2d: unsupported device {mat.device}")
+    if not 1 <= blk <= MAX_BLK:
+        raise ValueError("twin_rows_2d: blk must be 1..128")
+    if mat.dtype != torch.float32 or mat.dim() != 2 or not mat.is_contiguous():
+        raise ValueError("twin_rows_2d: mat must be a contiguous (R, W) float32 tensor")
+    r, w = mat.shape
+    out = torch.empty((r * -(-w // blk), 2 * blk), dtype=torch.float32, device=mat.device)
+    fn = kernels.load("twin_rows").twin_rows_2d_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, i, i, p]
+    fn.restype = i
+    with torch.cuda.device(mat.device):
+        err = fn(mat.data_ptr(), out.data_ptr(), r, w, blk,
+                 torch.cuda.current_stream(mat.device).cuda_stream)
+    kernels.check(err, "twin_rows_2d")
+    twin_rows_2d.launches += 1
+    return out
+
+
+twin_rows_2d.launches = 0
 
 
 def _launcher():

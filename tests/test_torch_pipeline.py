@@ -60,14 +60,21 @@ def _keyed(x, y, size, pori, desc):
     }
 
 
-@pytest.mark.parametrize("route", ["default", "front"])
+@pytest.mark.parametrize("route", ["default", "front", "front_twin"])
 def test_final_keypoints_and_descriptors_equal_oracle(case, route):
     """Same keypoint set (x, y, size bit-equal) and 0 descriptor bytes off,
-    on the route ``detect_and_describe`` takes (the non-front one) and on
-    the front route."""
+    on the route ``detect_and_describe`` takes (the non-front one), on the
+    front route and on the front-twin route's layouts (whose plain
+    versions take float64 too)."""
     oracle, imgs, _, _, final = case
-    if route == "front":
+    if route == "default":
+        assert S.route_of(CFG64, "cpu") == "stacks"
+    elif route == "front":
         final = S.run_route(imgs, CFG64, "front")[0].map(lambda a: a[0])
+    else:
+        # float64 gets no strip from front_twin_strip, so every octave takes
+        # the fallback: the same layouts, built from plain stacks.
+        final = S.run_route(imgs, CFG64, "front_twin")[0].map(lambda a: a[0])
     mine = final.dense()
     got = _keyed(mine["x"], mine["y"], mine["size"], mine["pori"], mine["desc"])
     want = _keyed(*(oracle[f"final.{f}"] for f in ("x", "y", "size", "pori", "desc")))

@@ -1,7 +1,7 @@
-"""The port's batch routes: the choice between the front route and the
+"""The port's batch routes: the choice between the front-twin route and the
 non-front route mirrors the JAX package's ``_use_front`` (CUDA in the TPU's
-place), both routes give the same answer, and the non-front route runs the
-configurations the front route cannot take."""
+place), the routes give the same answer, and the non-front route runs the
+configurations the front routes cannot take."""
 
 from __future__ import annotations
 
@@ -33,10 +33,17 @@ DTYPES = {"float32": (torch.float32, jnp.float32), "float64": (torch.float64, jn
 def test_use_front_gives_jax_answer(monkeypatch, window, dtype, knob, backend):
     """CUDA stands in for the TPU, the CPU for the CPU."""
     monkeypatch.setattr(JS.jax, "default_backend", lambda: backend)
-    want = JS._use_front(JaxConfig(window_size=window, dtype=DTYPES[dtype][1],
-                                   use_pallas_pyramid=knob))
+    jcfg = JaxConfig(window_size=window, dtype=DTYPES[dtype][1], use_pallas_pyramid=knob)
+    want = JS._use_front(jcfg)
     cfg = SiftConfig(window_size=window, dtype=DTYPES[dtype][0], use_octave_kernel=knob)
-    assert S.use_front(cfg, "cuda" if backend == "tpu" else "cpu") == want
+    # A JAX configuration carried over lands on the same route.
+    assert SiftConfig.from_reference(dataclasses.asdict(jcfg)) == cfg
+    dev = "cuda" if backend == "tpu" else "cpu"
+    assert S.use_front(cfg, dev) == want
+    # Where JAX's entry point runs _jit_front_twin_batch, the port's runs
+    # the front-twin route; the plain-stack front is never route_of's answer.
+    assert (S.route_of(cfg, dev) == "front_twin") == want
+    assert S.route_of(cfg, dev) != "front"
 
 
 @pytest.mark.parametrize("dtype,backend", list(itertools.product(DTYPES, ("cpu", "tpu"))))
@@ -72,14 +79,17 @@ def test_routes_agree_float64(small):
 
 
 def test_routes_agree_float32_through_the_knob(small):
-    """use_octave_kernel=True puts a float32 batch on the front route on
-    the CPU too; both routes give the same buffer.  Tolerance: none."""
+    """use_octave_kernel=True puts a float32 batch on the front-twin route
+    on the CPU too; it, the plain-stack front route and the non-front route
+    give the same buffer.  Tolerance: none."""
     imgs = np.stack([small, small[:, ::-1]])
     cfg = SiftConfig(**CAPS)
     front = dataclasses.replace(cfg, use_octave_kernel=True)
     assert S.use_front(front, "cpu") and not S.use_front(cfg, "cpu")
-    _assert_same_buffer(detect_and_describe_batch(imgs, cfg, device="cpu"),
-                        detect_and_describe_batch(imgs, front, device="cpu"))
+    assert (S.route_of(front, "cpu"), S.route_of(cfg, "cpu")) == ("front_twin", "stacks")
+    got = detect_and_describe_batch(imgs, front, device="cpu")
+    _assert_same_buffer(detect_and_describe_batch(imgs, cfg, device="cpu"), got)
+    _assert_same_buffer(S.run_route(S.as_batch(imgs, cfg, "cpu"), cfg, "front")[0], got)
 
 
 def test_window5_float64_equals_jax_xla_route(small):
