@@ -130,30 +130,35 @@ def blur_bound(shape, hk):
     return 8 * px / HBM_BPS * 1e3, px * blur_ops(hk) / F32_OPS * 1e3
 
 
-def front_halo_cost(shapes, hks, tile_h=32, tile_w=128):
-    """Cost of kernel A's per-tile halo (csrc/octave_front.cu tiles of
-    tile_h x tile_w): (seed elements loaded, blur-pass elements computed),
-    each over the minimum of one per pixel, summed over the octaves."""
+def front_halo_cost(shapes, hks, bsz, mask: bool):
+    """Cost of the halo of csrc/octave_front.cu's rolling row window (tile
+    width, strip rule and halos from ops/octave_rolling.py, which mirrors the
+    source's constants): (seed elements loaded, blur-pass elements computed),
+    each over the minimum of one per pixel, summed over the octaves; and the
+    strip rows and CTAs of each octave.  A CTA loads and computes, per layer,
+    the rows of its strip plus that layer's warm-up rows on both sides, and
+    the tile's columns plus that layer's halo."""
+    from sift_tpu_torch.ops.octave_rolling import TILE_W, layer_ext, row_ranges, strip_rows_for
+
     radii = [len(hk) - 1 for hk in hks]
-    halo = sum(radii) + 1
+    ext = layer_ext(radii, mask)
     loaded = passes = px = 0
+    strips, ctas = [], []
     for h, w in shapes:
         px += h * w
-        for y0 in range(0, h, tile_h):
-            y1 = min(y0 + tile_h, h)
-            for x0 in range(0, w, tile_w):
-                x1 = min(x0 + tile_w, w)
-
-                def span(lo, hi, n, m):
-                    return min(n, hi + m) - max(0, lo - m)
-
-                loaded += span(y0, y1, h, halo) * span(x0, x1, w, halo)
-                rem = halo
-                for r in radii:
-                    passes += span(y0, y1, h, rem) * span(x0, x1, w, rem - r)
-                    passes += span(y0, y1, h, rem - r) * span(x0, x1, w, rem - r)
-                    rem -= r
-    return loaded / px, passes / (2 * len(radii) * px)
+        strip = strip_rows_for(bsz, h, w, ext[0])
+        strips.append(strip)
+        ctas.append(-(-h // strip) * -(-w // TILE_W) * bsz)
+        for ys in range(0, h, strip):
+            rng = row_ranges(ys, min(ys + strip, h), h, ext)
+            for x0 in range(0, w, TILE_W):
+                tw = min(x0 + TILE_W, w) - x0
+                loaded += (rng[0][1] - rng[0][0]) * (tw + 2 * ext[0])
+                for k in range(1, len(ext)):
+                    wide = tw + 2 * ext[k]
+                    passes += (rng[k - 1][1] - rng[k - 1][0]) * wide  # horizontal
+                    passes += (rng[k][1] - rng[k][0]) * wide          # vertical
+    return loaded / px, passes / (2 * len(radii) * px), strips, ctas
 
 
 def top2_bound(p, n, m):
@@ -185,8 +190,8 @@ def twin_bound(floats_in, floats_out):
 def front_twin_bound(plan, bsz, hks):
     """Least time of one sweep's octaves through kernel F, counting what its
     launch moves: each seed read once; every value it stores into the two
-    gather buffers (csrc/octave_front.cu ``store_twin``: a gauss value of a
-    stored layer once, and once more from column blk on; ``store_packed``:
+    gather buffers (csrc/octave_front.cu ``twin_put``: a gauss value of a
+    stored layer once, and once more from column blk on; ``packed_put``:
     a DoG value in its block, and in the block before where the windows
     overlap), mask, counts and ``down`` written once; kernel A's float32
     operations.  The buffers' zero lanes, rows past H and gaps come from
@@ -262,6 +267,7 @@ def main() -> int:
         octave_front_twin,
         octave_front_twin_plain,
     )
+    from sift_tpu_torch.ops.octave_rolling import batch_rows_for
     from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
     from sift_tpu_torch.ops.top2 import top2, top2_plain
     from sift_tpu_torch.ops.twin_rows import (
@@ -332,11 +338,29 @@ def main() -> int:
         seeds.append(down_p.contiguous())
         del ref, got
     seeds = seeds[: len(shapes)]
-    read_x, work_x = front_halo_cost(shapes, hks)
+    # A chain whose rings do not fit shared memory at the full row batch
+    # (4 intervals: 6 blurs) makes the launcher take a smaller one.
+    cfg4 = SiftConfig(intervals=4, **CAPS)
+    hks4 = blur_half_kernels(cfg4)
+    radii4 = [len(hk) - 1 for hk in hks4]
+    need(batch_rows_for(radii4, True) < batch_rows_for([len(hk) - 1 for hk in hks], True),
+         "the 4-interval chain does not force a smaller batch")
+    for o in (0, 2, 5):
+        sd = seeds[o]
+        for what, got, ref in (
+                ("A", octave_front(sd, hks4, thr), octave_front_plain(sd, hks4, thr)),
+                ("C", octave_blur(sd, hks4), octave_blur_plain(sd, hks4))):
+            for a, b in zip(got, ref):
+                same(a, b, f"kernel {what} octave {o}, 4-interval chain, vs plain")
+        del got, ref
+    read_x, work_x, strips_a, ctas_a = front_halo_cost(shapes, hks, BATCH, mask=True)
     a_times = octave_bound(shapes, BATCH, hks, mask=True)
     emit(dict(phase="kernel_a_vs_plain", shapes_hw=shapes, batch=BATCH,
               bit_equal=True, max_abs_err=worst, seed_read_factor=read_x,
-              blur_work_factor=work_x, bytes_ms=a_times[0], ops_ms=a_times[1]))
+              blur_work_factor=work_x, strip_rows=strips_a, ctas=ctas_a,
+              smaller_batch_chain=dict(intervals=4, radii=radii4, octaves=[0, 2, 5],
+                                       batch_rows=batch_rows_for(radii4, True), bit_equal=True),
+              bytes_ms=a_times[0], ops_ms=a_times[1]))
 
     def chain(fn):
         return lambda: [fn(s, hks, thr) for s in seeds]
@@ -425,9 +449,9 @@ def main() -> int:
         return (torch.zeros((BATCH, plan.g_total, 2 * plan.blk), device=dev),
                 torch.zeros((BATCH, plan.pk_total, 128), device=dev))
 
-    def run_f(fn, gbuf, pkbuf):
+    def run_f(fn, gbuf, pkbuf, args=None):
         return [fn(sd, hk, t, gbuf, gb, st, blk, l0, nl, pkbuf, pb)
-                for sd, hk, t, gb, st, blk, l0, nl, pb in f_args]
+                for sd, hk, t, gb, st, blk, l0, nl, pb in args or f_args]
 
     gk, pkk = twin_buffers()
     gp, pkp = twin_buffers()
@@ -440,6 +464,21 @@ def main() -> int:
     f_err = max(f_err, same(gk, gp, "kernel F gauss twin rows vs plain"),
                 same(pkk, pkp, "kernel F cube-packed rows vs plain"))
     del gp, pkp
+    # The same at the 4-interval chain: 6 blurs, 4 stored gauss layers,
+    # 21-lane packed windows, the smaller row batch.
+    plan4 = S.front_twin_plan(cfg4, octaves, *shapes[0])
+    f4_args = [(seed, hks4, thr, gbase, st, plan4.blk, plan4.g_l0, plan4.g_nl, pkbase)
+               for seed, (_, _, st, _, _, gbase), pkbase
+               in zip(seeds, plan4.octaves, plan4.pk_bases)]
+    bufs4 = [(torch.zeros((BATCH, plan4.g_total, 2 * plan4.blk), device=dev),
+              torch.zeros((BATCH, plan4.pk_total, 128), device=dev)) for _ in range(2)]
+    for o, (got, ref) in enumerate(zip(run_f(octave_front_twin, *bufs4[0], f4_args),
+                                       run_f(octave_front_twin_plain, *bufs4[1], f4_args))):
+        for name, a, b in zip(("mask", "counts", "down"), got, ref):
+            same(a, b, f"kernel F octave {o} {name}, 4-interval chain, vs plain")
+    same(bufs4[0][0], bufs4[1][0], "kernel F gauss twin rows, 4-interval chain, vs plain")
+    same(bufs4[0][1], bufs4[1][1], "kernel F cube-packed rows, 4-interval chain, vs plain")
+    del bufs4, got, ref
     gmr, dcr, f_masks, f_counts = front_twin_pyramids(seeds[0], cfg, plan)
     same(gmr.rows, gk, "front_twin_pyramids gauss rows vs kernel F alone")
     same(dcr.rows, pkk, "front_twin_pyramids packed rows vs kernel F alone")
@@ -470,6 +509,7 @@ def main() -> int:
               strips=[o[2] for o in plan.octaves], unit=plan.unit,
               gauss_rows_per_image=plan.g_total, packed_rows_per_image=plan.pk_total,
               bit_equal_to_plain=True, index_reads_equal_kernel_a=True, max_abs_err=f_err,
+              bit_equal_at_4_intervals=True,
               bytes_ms=f_times[0], ops_ms=f_times[1]))
     del gmr, f_masks, f_counts
 
@@ -814,6 +854,9 @@ def main() -> int:
 
     f_ms = cuda_ms(lambda: run_f(octave_front_twin, gk, pkk), KERNEL_REPS)
     f_plain_ms = cuda_ms(lambda: run_f(octave_front_twin_plain, gk, pkk), 3)
+    # Each octave's launch alone: the small octaves show what a launch costs.
+    f_octave_ms = [cuda_ms(lambda a=a: run_f(octave_front_twin, gk, pkk, [a]), KERNEL_REPS)
+                   for a in f_args]
     fill_ms = cuda_ms(twin_buffers, 5)
     f_bound, f_by = bound(*f_times)
     g_ms = cuda_ms(lambda: [cube_pack_rows(d, st, out=pkg, base=pb) for d, st, pb in g_args],
@@ -846,7 +889,8 @@ def main() -> int:
               blur_pass_ms=d_ms, blur_pass_plain_ms=d_plain_ms, library_blur_ms=d_lib_ms,
               library_blur_max_abs_err=d_lib_err, twin_rows_ms=e_ms,
               twin_rows_plain_ms=e_plain_ms, octave_front_twin_ms=f_ms,
-              octave_front_twin_plain_ms=f_plain_ms, front_twin_zero_fill_ms=fill_ms,
+              octave_front_twin_plain_ms=f_plain_ms, octave_front_twin_ms_by_octave=f_octave_ms,
+              front_twin_zero_fill_ms=fill_ms,
               cube_pack_ms=g_ms, cube_pack_plain_ms=g_plain_ms, twin_rows_2d_ms=h_ms,
               twin_rows_2d_plain_ms=h_plain_ms, build_multi_rows_kernel_ms=h_space_ms))
 
