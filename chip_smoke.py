@@ -6,10 +6,12 @@
 Builds the port's CUDA kernels from ``sift_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and holds each kernel against its plain PyTorch
 version at the shapes its paths give it: kernel A (octave front), B (top-2
-matcher), C (octave blur), D (one separable blur), E (twin-row gather
-space), F (octave front into the front-twin gather layouts), G (cube-packed
-DoG rows) and H (row-major twin rows).  Then it drives the port's routes
-on 640x480 frames (the CAVE-01 pair, the oracle-decoded pixels of
+matcher; 8 pairs of 2048 x 2048 and one of 1286 x 1430, with planted
+ties), C (octave blur), D (one separable blur, one launch; ptxas must
+report no stack frame and no spills), E (twin-row gather space), F
+(octave front into the front-twin gather layouts), G (cube-packed DoG
+rows) and H (row-major twin rows).  Then it drives the port's routes on
+640x480 frames (the CAVE-01 pair, the oracle-decoded pixels of
 tests/data), capacities extrema/kp/ori = 6144/1536/2048, float32:
 
 * the main path, the front-twin route: batched detect + describe + match,
@@ -24,12 +26,18 @@ tests/data), capacities extrema/kp/ori = 6144/1536/2048, float32:
 
 and checks the reference's answer on each: 677 and 1067 keypoints and the
 identical 165-match set on every pair, and the same keypoints and
-descriptors as the main path.  Last, the non-front route as a
+descriptors as the main path.  Then the non-front route as a
 ``window_size=5`` configuration takes it, batch 16, through C, D, E and
 B: finite, within its capacities, and equal to the same route on the
-plain stacks.  Every launch counter is set to 0 just before a path and
-read just after.  Then it times the sweeps, each stage, the staged path,
-the other routes and each kernel.
+plain stacks.  Then the demo pair (755 x 499, doubled to 1510 x 998),
+batch 2, through the main path, the fallback, the front route, the XLA
+route and the staged path: each bit-equal to the main path, finite and
+within its capacities, with kernels D and B held against their plain
+versions at the demo's shapes; it prints whether the float32 run holds the
+anchor (1286 / 1430 keypoints, 269 matches), which the CPU tests hold in
+float64.  Every launch counter is set to 0 just before a path and read
+just after.  Then it times the sweeps, each stage, the staged path, the
+other routes and each kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as the last
@@ -53,6 +61,9 @@ BATCH = 16
 CAPS = dict(extrema_cap=6144, kp_cap=1536, ori_cap=2048)
 WANT_KP = (677, 1067)
 WANT_MATCHES = 165
+DEMO_KP = (1286, 1430)  # the demo pair's anchor (oracle_demo{1,2}.npz)
+DEMO_MATCHES = 269
+DEMO_CAPS = dict(extrema_cap=8192, kp_cap=2048, ori_cap=2048)
 TIMED_SWEEPS = 5
 KERNEL_REPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
@@ -98,6 +109,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed (CUDA events around the replay), so that the host's
+    pace of launching through a Python wrapper is out of the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, 5) / reps
+    del graph
+    return ms
+
+
 def blur_ops(hk) -> int:
     """float32 operations per pixel of one separable blur: mul + r*(add,
     mul, add) + div per pass, two passes."""
@@ -124,8 +155,7 @@ def octave_bound(shapes, bsz, hks, mask: bool):
 
 def blur_bound(shape, hk):
     """Least time of one blur of a (B, H, W) float32 plane: the input read
-    once and the output written once (a blur fused into one pass; kernel
-    D's two passes move twice that)."""
+    once and the output written once (kernel D's one pass)."""
     px = math.prod(shape)
     return 8 * px / HBM_BPS * 1e3, px * blur_ops(hk) / F32_OPS * 1e3
 
@@ -165,6 +195,38 @@ def top2_bound(p, n, m):
     ops = 2 * 128 * p * n * m  # multiply + add per byte pair
     nbytes = p * (n + m) * 128 + p * m + 3 * 4 * p * n
     return nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+
+
+def planted_top2(p, n, m, seed=0):
+    """Random (desc1, desc2, valid2) for kernel B with ties planted where its
+    scan could get them wrong: two columns of one lane and of two lanes of
+    one 8-column fragment, across 128-column tiles and across the column
+    splits, the same tie for rows of two warps, two equal targets; invalid
+    runs, an invalid tail with one valid column at its end, and (p > 1) a
+    pair with no valid target."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    d1 = torch.randint(0, 256, (p, n, 128), generator=g, dtype=torch.uint8)
+    d2 = torch.randint(0, 256, (p, m, 128), generator=g, dtype=torch.uint8)
+    if n > 30:
+        d1[:, 30] = d1[:, 7]  # rows of warps 0 and 1 with the same ties
+    plant = [(7, [2, 3]), (8, [1, 6]), (20, [5, 130]), (40, [299, m - 1]),
+             (63, [64, 64 + 128 * 2]), (n - 1, [m // 2, m // 2 + 1])]
+    for row, cols in plant:
+        for c in cols:
+            if row < n and 0 <= c < m:
+                d2[:, c] = d1[:, row]
+    if m > 301:
+        d2[:, 300] = d2[:, 301]  # equal targets: equal distances for every row
+    v2 = torch.ones((p, m), dtype=torch.bool)
+    v2[:, 100:140] = False
+    if m:
+        v2[:, m - m // 20:] = False
+        v2[:, m - 1] = True
+    if p > 1:
+        v2[p // 2] = False
+    return d1, d2, v2
 
 
 def bound(t_bytes, t_ops):
@@ -254,7 +316,9 @@ def main() -> int:
     from sift_tpu_torch.models.match import ratio_accept
     from sift_tpu_torch.models.pyramid import blur_half_kernels, compute_initial_image
     from sift_tpu_torch.ops.blur import separable_blur
+    from sift_tpu_torch.ops.blur_pass import launch_plan as blur_plan
     from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
+    from sift_tpu_torch.ops.blur_pass import strip_rows_for as blur_strip_rows
     from sift_tpu_torch.ops.color import to_grayscale
     from sift_tpu_torch.models.pyramid import front_twin_pyramids
     from sift_tpu_torch.ops.cube_pack import cube_pack_rows
@@ -269,6 +333,7 @@ def main() -> int:
     )
     from sift_tpu_torch.ops.octave_rolling import batch_rows_for
     from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
+    from sift_tpu_torch.ops.top2 import split_for as top2_split_for
     from sift_tpu_torch.ops.top2 import top2, top2_plain
     from sift_tpu_torch.ops.twin_rows import (
         twin_rows_2d,
@@ -299,7 +364,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     # ptxas's register / spill report of each kernel (empty when cached).
     ptxas = {k: [ln.split(":", 1)[-1].strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln] for k, v in logs.items()}
+                 if "registers" in ln or "spill" in ln or "stack frame" in ln]
+             for k, v in logs.items()}
+    # Kernel D's taps are fixed at build time: no stack frame, no spills.
+    if logs["blur_pass"] != "cached":
+        frames = [ln for ln in ptxas["blur_pass"] if "stack frame" in ln]
+        need(len(frames) >= 16 and all(ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                    "0 bytes spill loads") for ln in frames),
+             f"kernel D: stack frame or spills: {frames}")
     emit(dict(
         phase="device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
@@ -375,6 +447,15 @@ def main() -> int:
     # (the staged path's); the batch's pyramid stays for kernel E's check.
     c_err = d_err = 0.0
     d_checked = []
+
+    def d_plan(shape, hk):
+        """Kernel D's launch plan at ``shape`` (strip rows, CTAs an SM, SMs),
+        which the CPU model's strip rule must reproduce."""
+        strip, ctas, sms = blur_plan(*shape, len(hk))
+        need(strip == blur_strip_rows(*shape, len(hk) - 1, ctas, sms),
+             f"kernel D strip rule at {shape}, {len(hk)} taps: the launcher takes {strip}")
+        return dict(strip_rows=strip, ctas_per_sm=ctas, sms=sms)
+
     gs16, ds16 = [], []
     for o, seed in enumerate(seeds):
         ref = octave_blur_plain(seed, hks)
@@ -393,7 +474,8 @@ def main() -> int:
             layer = ref[0][:, k].contiguous()
             d_err = max(d_err, same(separable_blur_kernel(layer, hk), separable_blur(layer, hk),
                                     f"kernel D octave {o} blur {k + 1} vs plain"))
-            d_checked.append(dict(octave=o, blur=k + 1, taps=len(hk)))
+            d_checked.append(dict(octave=o, blur=k + 1, taps=len(hk),
+                                  **d_plan(tuple(layer.shape), hk)))
         gs16.append(got[0])
         ds16.append(got[1])
         del ref, got, front
@@ -415,7 +497,9 @@ def main() -> int:
                                 f"kernel D frame {i} initial vs plain"))
     d_times = blur_bound(tuple(gray.shape), pre)
     emit(dict(phase="kernel_d_vs_plain", initial_shape=list(gray.shape),
-              initial_taps=len(pre), chain_blurs=d_checked, bit_equal=True,
+              initial_taps=len(pre), initial_plan=d_plan(tuple(gray.shape), pre),
+              one_frame_plan=d_plan((1,) + tuple(gray.shape[1:]), pre),
+              chain_blurs=d_checked, bit_equal=True,
               max_abs_err=d_err, bytes_ms=d_times[0], ops_ms=d_times[1]))
 
     # -- kernel E vs its plain version: the batch's gauss and DoG stacks at
@@ -555,35 +639,37 @@ def main() -> int:
               floats_out_blk128=h_out, bit_equal=True, max_abs_err=h_err,
               bytes_ms=h_times[0], ops_ms=h_times[1]))
 
-    # -- phase 4: kernel B vs its plain version, 8 pairs at 2048 x 2048 -----
-    g = torch.Generator().manual_seed(0)
+    # -- phase 4: kernel B vs its plain version, 8 pairs at 2048 x 2048 (the
+    # main path's) and one pair at the demo's 1286 x 1430, ties planted ------
     pairs, n = BATCH // 2, cfg.ori_cap
-    d1 = torch.randint(0, 256, (pairs, n, 128), generator=g, dtype=torch.uint8)
-    d2 = torch.randint(0, 256, (pairs, n, 128), generator=g, dtype=torch.uint8)
-    d2[:, 5] = d1[:, 7]
-    d2[:, 1900] = d1[:, 7]  # duplicate best in a later tile: ties
-    d2[:, 300] = d2[:, 301]
-    v2 = torch.ones((pairs, n), dtype=torch.bool)
-    v2[:, 100:140] = False
-    v2[:, 1950:] = False  # invalid tail, as in a part-filled buffer
-    v2[pairs // 2] = False  # one pair with no valid target
-    d1, d2, v2 = d1.to(dev), d2.to(dev), v2.to(dev)
-    got = top2(d1, d2, v2)
-    ref = top2_plain(d1, d2, v2)
-    torch.cuda.synchronize()
     b_err = 0
-    for name, a, b in zip(("best", "second", "idx"), got, ref):
-        b_err = max(b_err, (a.long() - b.long()).abs().max().item())
-        need(torch.equal(a, b), f"kernel B {name} differs from the plain version")
+    b_in = {}
+    for what, shape in (("main", (pairs, n, n)), ("pair", (1,) + DEMO_KP)):
+        d1, d2, v2 = (t.to(dev) for t in planted_top2(*shape))
+        got = top2(d1, d2, v2)
+        ref = top2_plain(d1, d2, v2)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("best", "second", "idx"), got, ref):
+            b_err = max(b_err, (a.long() - b.long()).abs().max().item())
+            need(torch.equal(a, b), f"kernel B {what} {name} differs from the plain version")
+        b_in[what] = (d1, d2, v2)
     b_times = top2_bound(pairs, n, n)
-    emit(dict(phase="kernel_b_vs_plain", pairs=pairs, n=n, m=n, equal=True,
-              bytes_ms=b_times[0], ops_ms=b_times[1]))
-    b_ms = cuda_ms(lambda: top2(d1, d2, v2), KERNEL_REPS)
-    b_plain_ms = cuda_ms(lambda: top2_plain(d1, d2, v2), 5)
-    f1, f2 = d1.float(), d2.float()
+    emit(dict(phase="kernel_b_vs_plain", shapes=dict(main=[pairs, n, n], pair=[1, *DEMO_KP]),
+              splits=dict(main=top2_split_for(pairs, n, n), pair=top2_split_for(1, *DEMO_KP)),
+              ties_planted=True, equal=True, bytes_ms=b_times[0], ops_ms=b_times[1]))
+    # ``ms`` is CUDA events around host launches, as for every kernel; B's
+    # launch is shorter than its wrapper's host time, so its device time, the
+    # launches replayed from a CUDA graph, stands beside it as ``device_ms``.
+    b_ms = cuda_ms(lambda: top2(*b_in["main"]), KERNEL_REPS)
+    b_dev_ms = graph_ms(lambda: top2(*b_in["main"]), KERNEL_REPS)
+    b_pair_ms = cuda_ms(lambda: top2(*b_in["pair"]), KERNEL_REPS)
+    b_pair_dev_ms = graph_ms(lambda: top2(*b_in["pair"]), KERNEL_REPS)
+    b_plain_ms = cuda_ms(lambda: top2_plain(*b_in["main"]), 5)
+    f1, f2 = (t.float() for t in b_in["main"][:2])
     b_lib_ms = cuda_ms(lambda: torch.cdist(f1, f2).topk(2, dim=-1, largest=False), 5)
     b_bound, b_by = bound(*b_times)
-    del d1, d2, v2, f1, f2
+    b_pair_bound = bound(*top2_bound(1, *DEMO_KP))[0]
+    del b_in, f1, f2
 
     # Reference match set: the oracle's own descriptors through the plain matcher.
     od1 = torch.from_numpy(o1["final.desc"])[None]
@@ -603,14 +689,16 @@ def main() -> int:
             need(got_set == want, f"{what} pair {p}: {len(got_set)} matches, "
                  f"{len(got_set ^ want)} differ from the oracle's 165-match set")
 
-    def honest(kp, counts, what):
-        """No capacity clipped a real detection and every value is finite."""
-        caps = dict(extrema=cfg.extrema_cap, refined=cfg.kp_cap, oriented=cfg.ori_cap)
+    def honest(kp, counts, what, c=cfg):
+        """No capacity of ``c`` clipped a real detection and every value is
+        finite."""
+        caps = dict(extrema=c.extrema_cap, refined=c.kp_cap, oriented=c.ori_cap)
         for k, cap in caps.items():
             need(int(counts[k].max()) <= cap, f"{what}: {k} count {counts[k].tolist()} > {cap}")
-        for ph, (cap, _) in enumerate(refine_cascade_caps(cfg, cfg.extrema_cap)):
-            need(int(counts["refine_active"][:, ph].max()) <= cap, f"{what}: Newton overflow")
-        need(int(counts["ori_slots_max"]) <= cfg.ori_cand_slots, f"{what}: ori slots overflow")
+        for ph, (cap, _) in enumerate(refine_cascade_caps(c, c.extrema_cap)):
+            need(int(counts["refine_active"][:, ph].max()) <= cap,
+                 f"{what}: Newton overflow {counts['refine_active'][:, ph].tolist()} > {cap}")
+        need(int(counts["ori_slots_max"]) <= c.ori_cand_slots, f"{what}: ori slots overflow")
         for k, v in kp.to_numpy().items():
             if v.dtype.kind == "f":
                 need(np.isfinite(v).all(), f"{what}: non-finite {k}")
@@ -639,7 +727,7 @@ def main() -> int:
                       cfg.ratio_threshold, device=dev)
     launches = {"main": read_counts()}
     expect_launches("main", dict(octave_front_twin=octaves, octave_front=0, cube_pack=0,
-                                 blur_pass=2, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0))
+                                 blur_pass=1, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0))
     nkp = check_batch(kp, counts, "main path")
 
     # The plain-stack front route, counted.
@@ -649,7 +737,7 @@ def main() -> int:
                       cfg.ratio_threshold, device=dev)
     launches["front"] = read_counts()
     expect_launches("front", dict(octave_front=octaves, octave_front_twin=0, cube_pack=0,
-                                  blur_pass=2, top2=1))
+                                  blur_pass=1, top2=1))
     check_batch(kf, cf, "front route")
     same_buffers(kp, kf, "front-twin route vs front route")
     for k in counts:
@@ -672,7 +760,7 @@ def main() -> int:
     kb, cb = S.run_route(imgs, cfg, "front_twin", fb_plan)
     launches["fallback"] = read_counts()
     expect_launches("fallback", dict(octave_front=2, cube_pack=2, octave_front_twin=octaves - 2,
-                                     blur_pass=2))
+                                     blur_pass=1))
     check_batch(kb, cb, "front-twin fallback")
     same_buffers(kb, kp, "front-twin route with fallback octaves vs all fused")
     emit(dict(phase="front_twin_fallback", fallback_octaves=[0, 3],
@@ -683,7 +771,7 @@ def main() -> int:
     # -- phase 6: the staged path, frame by frame, counted -------------------
     def staged_overflow(st, c):
         cnt, out = st["counts"], []
-        for o in range(octaves):
+        for o in range(len(st["gaussians"])):
             for k, cap in (("extrema", c.extrema_cap_for_octave(o)),
                            ("refined", c.kp_cap_for_octave(o)),
                            ("oriented", 2 * c.kp_cap_for_octave(o))):
@@ -695,24 +783,30 @@ def main() -> int:
             out.append(f"final {int(cnt['final'])} > {c.ori_cap}")
         return out
 
-    scfg, raised = cfg, []
-    while True:
-        zero_counts()
-        staged = [S.detect_stages(o["input"], scfg, octaves, device=dev) for o in (o1, o2)]
-        launches["staged"] = read_counts()
-        over = [x for st in staged for x in staged_overflow(st, scfg)]
-        if not over:
-            break
-        need(len(raised) < 3, f"staged path: capacities still clipped: {over}")
-        scfg = dataclasses.replace(
-            scfg, extrema_cap=2 * scfg.extrema_cap, kp_cap=2 * scfg.kp_cap,
-            ori_cap=2 * scfg.ori_cap, ori_cand_slots=2 * scfg.ori_cand_slots)
-        raised.append(dict(overflow=over, raised_to=dict(
-            extrema_cap=scfg.extrema_cap, kp_cap=scfg.kp_cap, ori_cap=scfg.ori_cap,
-            ori_cand_slots=scfg.ori_cand_slots)))
+    def run_staged(frames, c, octs, path):
+        """detect_stages on each frame, counted as ``path``; the per-octave
+        capacities doubled (at most three times) until none clips.
+        Returns (stage dicts, the configuration that ran, what was raised)."""
+        raised = []
+        while True:
+            zero_counts()
+            staged = [S.detect_stages(f, c, octs, device=dev) for f in frames]
+            launches[path] = read_counts()
+            over = [x for st in staged for x in staged_overflow(st, c)]
+            if not over:
+                return staged, c, raised
+            need(len(raised) < 3, f"{path}: capacities still clipped: {over}")
+            c = dataclasses.replace(
+                c, extrema_cap=2 * c.extrema_cap, kp_cap=2 * c.kp_cap,
+                ori_cap=2 * c.ori_cap, ori_cand_slots=2 * c.ori_cand_slots)
+            raised.append(dict(overflow=over, raised_to=dict(
+                extrema_cap=c.extrema_cap, kp_cap=c.kp_cap, ori_cap=c.ori_cap,
+                ori_cand_slots=c.ori_cand_slots)))
+
+    staged, scfg, raised = run_staged([o1["input"], o2["input"]], cfg, octaves, "staged")
     # Per frame and octave kernel H builds the DoG rows (refine) and the gauss
     # rows twice (orientation, descriptors), as the JAX package's stages do.
-    expect_launches("staged", dict(octave_blur=octaves * 2, blur_pass=2 * 2,
+    expect_launches("staged", dict(octave_blur=octaves * 2, blur_pass=2,
                                    twin_rows_2d=3 * octaves * 2, octave_front=0,
                                    octave_front_twin=0))
     for i, st in enumerate(staged):
@@ -738,7 +832,7 @@ def main() -> int:
     launches["xla_route"] = read_counts()
     n_blurs = 1 + len(hks) * octaves
     expect_launches("xla_route", dict(octave_front=0, top2=0, octave_blur=0,
-                                      blur_pass=2 * n_blurs, twin_rows=2 * octaves,
+                                      blur_pass=n_blurs, twin_rows=2 * octaves,
                                       octave_front_twin=0, cube_pack=0, twin_rows_2d=0))
     check_batch(kx, cx, "XLA route")
     same_buffers(kx, kp, "XLA route vs the main path")
@@ -758,7 +852,7 @@ def main() -> int:
                                       kw.valid[1::2], cfg.ratio_threshold, device=dev)
     launches["window5"] = read_counts()
     expect_launches("window5", dict(octave_front=0, octave_front_twin=0, octave_blur=octaves,
-                                    blur_pass=2, twin_rows=2 * octaves, top2=1))
+                                    blur_pass=1, twin_rows=2 * octaves, top2=1))
     honest(kw, cw, "window-5 route")
     nkw = kw.valid.sum(1).tolist()
     need(min(nkw) > 0, f"window-5 route: keypoint counts {nkw}")
@@ -770,6 +864,120 @@ def main() -> int:
               equal_to_plain_stacks=True, equal_frames_equal=True,
               launches=launches["window5"], counts={k: v.tolist() for k, v in cw.items()}))
     del kw, cw, plain_layout
+
+    # -- phase 8b: the demo pair (755 x 499, doubled to 1510 x 998: neither
+    # even nor a multiple of 64), batch 2, float32, through the main path, the
+    # fallback (octaves 0 and 3), the front route, the XLA route and the staged
+    # path, each counted; kernels D and B against their plain versions at the
+    # demo's shapes ---------------------------------------------------------
+    dcfg = SiftConfig(**DEMO_CAPS)
+    od = [np.load(DATA / f"oracle_demo{i}.npz") for i in (1, 2)]
+    dimgs = S.as_batch(np.stack([o["input"] for o in od]), dcfg, dev)
+    doct = S.octaves_for(dimgs, dcfg)
+    dgray = upsample_bilinear(to_grayscale(dimgs).to(dcfg.dtype), 2, 2).contiguous()
+    dseed = separable_blur_kernel(dgray, pre)
+    d_err = max(d_err, same(dseed, separable_blur(dgray, pre), "kernel D demo initial vs plain"))
+    d_plan(tuple(dgray.shape), pre)
+    dshapes = []
+    for o in range(doct):
+        dshapes.append(tuple(dseed.shape[1:]))
+        g_plain = octave_blur_plain(dseed, hks)[0]
+        for k, hk in enumerate(hks):
+            layer = g_plain[:, k].contiguous()
+            d_err = max(d_err, same(separable_blur_kernel(layer, hk), separable_blur(layer, hk),
+                                    f"kernel D demo octave {o} blur {k + 1} vs plain"))
+            d_plan(tuple(layer.shape), hk)
+        dseed = downsample_nearest_x2(g_plain[:, g_plain.shape[1] - 3]).contiguous()
+        del g_plain
+
+    def demo_match(kp):
+        return match_descriptors(kp.desc[0:1], kp.valid[0:1], kp.desc[1:2], kp.valid[1:2],
+                                 dcfg.ratio_threshold, device=dev)
+
+    zero_counts()
+    dk, dc = S.detect_and_describe_batch(dimgs, dcfg, return_counts=True, device=dev)
+    didx, dacc, _, _ = demo_match(dk)
+    launches["demo_main"] = read_counts()
+    expect_launches("demo_main", dict(octave_front_twin=doct, octave_front=0, cube_pack=0,
+                                      blur_pass=1, top2=1, octave_blur=0, twin_rows=0,
+                                      twin_rows_2d=0))
+    honest(dk, dc, "demo main path", dcfg)
+    for name, a, b in zip(("best", "second", "idx"),
+                          top2(dk.desc[0:1], dk.desc[1:2], dk.valid[1:2]),
+                          top2_plain(dk.desc[0:1], dk.desc[1:2], dk.valid[1:2])):
+        same(a, b, f"kernel B demo descriptors {name} vs plain")
+    dkp = dk.valid.sum(1).tolist()
+    dmatches = int(dacc.sum())
+    rb, rs, ri = top2_plain(*(torch.from_numpy(o["final.desc"])[None] for o in od),
+                            torch.ones((1, DEMO_KP[1]), dtype=torch.bool))
+    racc = ratio_accept(rb, rs, torch.ones((1, DEMO_KP[0]), dtype=torch.bool))[0]
+    need(int(racc.sum()) == DEMO_MATCHES, f"demo oracle match set has {int(racc.sum())}")
+    dplan = S.front_twin_plan(dcfg, doct, *dshapes[0])
+    need([(o[0], o[1]) for o in dplan.octaves] == dshapes and all(o[3] for o in dplan.octaves),
+         f"demo front-twin plan {dplan.octaves}")
+    doff = {dshapes[0], dshapes[3]}
+    dfb_plan = S.front_twin_plan(
+        dcfg, doct, *dshapes[0],
+        strip_fn=lambda shape, *a: None if tuple(shape) in doff else front_twin_strip(shape, *a))
+    dx_cfg = dataclasses.replace(dcfg, use_octave_kernel=False)
+    routes = {}
+    for path, run, want in (
+            ("demo_fallback", lambda: S.run_route(dimgs, dcfg, "front_twin", dfb_plan),
+             dict(octave_front=2, cube_pack=2, octave_front_twin=doct - 2, blur_pass=1)),
+            ("demo_front", lambda: S.run_route(dimgs, dcfg, "front"),
+             dict(octave_front=doct, octave_front_twin=0, cube_pack=0, blur_pass=1)),
+            ("demo_xla_route", lambda: S.detect_and_describe_batch(
+                dimgs, dx_cfg, return_counts=True, device=dev),
+             dict(octave_front=0, octave_front_twin=0, octave_blur=0,
+                  blur_pass=1 + len(hks) * doct, twin_rows=2 * doct))):
+        zero_counts()
+        kr, cr = run()
+        launches[path] = read_counts()
+        expect_launches(path, want)
+        honest(kr, cr, path, dcfg)
+        same_buffers(kr, dk, f"{path} vs the demo main path")
+        routes[path] = kr.valid.sum(1).tolist()
+        del kr, cr
+    dstaged, dscfg, draised = run_staged([o["input"] for o in od], dcfg, doct, "demo_staged")
+    expect_launches("demo_staged", dict(octave_blur=doct * 2, blur_pass=2,
+                                        twin_rows_2d=3 * doct * 2, octave_front=0,
+                                        octave_front_twin=0))
+    for i, st in enumerate(dstaged):
+        fin = st["final"]
+        for f in ("x", "y", "size", "pori", "octave", "layer", "desc"):
+            same(getattr(fin, f)[fin.valid], getattr(dk, f)[i][dk.valid[i]],
+                 f"demo staged frame {i} {f} vs the main path")
+    routes["demo_staged"] = [int(st["final"].valid.sum()) for st in dstaged]
+    dmine = {(i, int(j)) for i, j in enumerate(didx[0].tolist()) if bool(dacc[0, i])}
+    dwant = {(i, int(ri[0, i])) for i in np.nonzero(racc.numpy())[0]}
+
+    def unmatched(a, b):
+        """(x, y, size) rows of ``a`` with no row of ``b`` within 0.01 in each."""
+        if not len(b):
+            return a.round(3).tolist()
+        return a[np.abs(a[:, None] - b[None]).max(-1).min(1) > 0.01].round(3).tolist()
+
+    off_anchor = {}
+    for i, o in enumerate(od):
+        v = dk.valid[i]
+        mine_xys = np.stack([getattr(dk, f)[i][v].double().cpu().numpy() for f in ("x", "y", "size")], 1)
+        want_xys = np.stack([o[f"final.{f}"] for f in ("x", "y", "size")], 1)
+        off_anchor[f"demo{i + 1}"] = dict(missing=unmatched(want_xys, mine_xys),
+                                          extra=unmatched(mine_xys, want_xys))
+    emit(dict(phase="demo_pair", frames_hw=list(dimgs.shape[1:3]), doubled_hw=list(dshapes[0]),
+              octave_shapes_hw=dshapes, batch=2, caps=DEMO_CAPS, strips=[o[2] for o in dplan.octaves],
+              keypoints=dkp, matches=dmatches, routes_keypoints=routes,
+              every_route_equal_to_main_path=True, launches={k: launches[k] for k in (
+                  "demo_main", "demo_fallback", "demo_front", "demo_xla_route", "demo_staged")},
+              anchor_exact=dkp == list(DEMO_KP) and dmatches == DEMO_MATCHES,
+              keypoints_minus_anchor=[a - b for a, b in zip(dkp, DEMO_KP)],
+              matches_minus_anchor=dmatches - DEMO_MATCHES,
+              keypoints_off_anchor=off_anchor,
+              # Index pairs line up with the oracle's only where the counts do.
+              same_match_set_as_oracle=dmine == dwant if dkp == list(DEMO_KP) else None,
+              staged_capacities_raised=draised,
+              counts={k: v.tolist() for k, v in dc.items()}))
+    del dk, dc, dstaged
 
     # -- phase 9: timing of the sweeps, the stages of the front-twin and the
     # front route, the other routes and the kernels ----------------------------
@@ -874,6 +1082,10 @@ def main() -> int:
     c_frame_ms = cuda_ms(lambda: [octave_blur(s, hks) for s in frame_seeds], KERNEL_REPS)
     c_bound, c_by = bound(*c_times)
     d_ms = cuda_ms(lambda: separable_blur_kernel(gray, pre), KERNEL_REPS)
+    d_dev_ms = graph_ms(lambda: separable_blur_kernel(gray, pre), KERNEL_REPS)
+    frame = gray[:1].contiguous()
+    d_frame_ms = cuda_ms(lambda: separable_blur_kernel(frame, pre), KERNEL_REPS)
+    d_frame_dev_ms = graph_ms(lambda: separable_blur_kernel(frame, pre), KERNEL_REPS)
     d_plain_ms = cuda_ms(lambda: separable_blur(gray, pre), 5)
     need(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
     d_lib_err = (library_blur(gray, pre) - initial).abs().max().item()
@@ -886,7 +1098,12 @@ def main() -> int:
     e_bound, e_by = bound(*e_times)
     emit(dict(phase="kernel_timing", octave_blur_ms=c_ms, octave_blur_plain_ms=c_plain_ms,
               octave_blur_one_frame_ms=c_frame_ms,
-              blur_pass_ms=d_ms, blur_pass_plain_ms=d_plain_ms, library_blur_ms=d_lib_ms,
+              blur_pass_ms=d_ms, blur_pass_device_ms=d_dev_ms,
+              blur_pass_one_frame_ms=d_frame_ms, blur_pass_one_frame_device_ms=d_frame_dev_ms,
+              blur_pass_plain_ms=d_plain_ms,
+              library_blur_ms=d_lib_ms, top2_ms=b_ms, top2_device_ms=b_dev_ms,
+              top2_one_pair_ms=b_pair_ms, top2_one_pair_device_ms=b_pair_dev_ms,
+              top2_one_pair_bound_ms=b_pair_bound,
               library_blur_max_abs_err=d_lib_err, twin_rows_ms=e_ms,
               twin_rows_plain_ms=e_plain_ms, octave_front_twin_ms=f_ms,
               octave_front_twin_plain_ms=f_plain_ms, octave_front_twin_ms_by_octave=f_octave_ms,
@@ -908,7 +1125,9 @@ def main() -> int:
              replaces="sift_tpu/ops/pallas_match.py:90",
              launches=launches["main"]["top2"], max_abs_err=float(b_err),
              ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
-             library_ms=b_lib_ms, launches_by_path=by_path("top2")),
+             library_ms=b_lib_ms, launches_by_path=by_path("top2"), device_ms=b_dev_ms,
+             one_pair_1286x1430_ms=b_pair_ms, one_pair_1286x1430_device_ms=b_pair_dev_ms,
+             one_pair_1286x1430_bound_ms=b_pair_bound),
         # ``launches`` is the count on the path that brought the kernel in:
         # the main path (the front-twin route) for F, B and D, the front route
         # for A, the window-5 route for C and E (batch 16), the fallback run
@@ -925,7 +1144,8 @@ def main() -> int:
              replaces="sift_tpu/ops/pallas_blur.py:121",
              launches=launches["main"]["blur_pass"], max_abs_err=d_err,
              ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound, bound_by=d_by,
-             library_ms=d_lib_ms, launches_by_path=by_path("blur_pass")),
+             library_ms=d_lib_ms, launches_by_path=by_path("blur_pass"),
+             device_ms=d_dev_ms),
         dict(name="twin_rows", route="cuda", source="sift_tpu_torch/csrc/twin_rows.cu",
              replaces="sift_tpu/ops/pallas_relayout.py:135",
              launches=launches["window5"]["twin_rows"], max_abs_err=e_err,

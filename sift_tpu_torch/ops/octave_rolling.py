@@ -73,17 +73,20 @@ def batch_rows_for(radii, mask: bool) -> int:
     return 0
 
 
-def strip_rows_for(bsz: int, h: int, w: int, halo: int, tile_w: int = TILE_W) -> int:
+def strip_rows_for(bsz: int, h: int, w: int, halo: int, tile_w: int = TILE_W,
+                   slots: int = SM_COUNT) -> int:
     """Rows of a CTA's strip, the launcher's rule: of the strip counts whose
     strips are at least MIN_STRIP rows, the one with the least estimated
-    time, (waves of CTAs over the SMs) x (rows a CTA walks: its strip, the
-    warm-up rows on both sides and the pipeline's fill); the smaller count
-    on a tie."""
+    time, (waves of CTAs over ``slots``, the CTAs the card holds at once:
+    one an SM here) x (rows a CTA walks: its strip, the warm-up rows on
+    both sides and the pipeline's fill); the smaller count on a tie.
+    Kernel D (csrc/blur_pass.cu) uses the same rule with its own tile and
+    slots."""
     tiles = -(-w // tile_w) * bsz
     best = None
     for ns in range(1, max(1, h // MIN_STRIP) + 1):
         rows = -(-h // ns)
-        cost = -(-tiles * ns // SM_COUNT) * (rows + 2 * halo + FILL_ROWS)
+        cost = -(-tiles * ns // slots) * (rows + 2 * halo + FILL_ROWS)
         if best is None or cost < best[0]:
             best = (cost, rows)
     return best[1]
