@@ -35,9 +35,17 @@ route and the staged path: each bit-equal to the main path, finite and
 within its capacities, with kernels D and B held against their plain
 versions at the demo's shapes; it prints whether the float32 run holds the
 anchor (1286 / 1430 keypoints, 269 matches), which the CPU tests hold in
-float64.  Every launch counter is set to 0 just before a path and read
-just after.  Then it times the sweeps, each stage, the staged path, the
-other routes and each kernel.
+float64.  Then the pair CLI on the CAVE 00 / 01 frames written as PNG,
+in this process (``cli.main``, counted: D, F, B) and as the command a
+user runs (``python -m sift_tpu_torch a.png b.png --json``): 677 / 1067
+keypoints, 165 matches, three PNGs.  Every launch counter is set to 0
+just before a path and read just after.  Then it times the sweeps, each
+stage, the staged path and the other routes; then the radius classes of
+orientation and descriptors (phase ``radius_classes``) against the
+worst-case window on the main path's buffers, in turns: lanes per class,
+the two stages' and the stage-by-stage sweep's ms, and the outputs
+compared (the same candidates; descriptor bytes that differ printed);
+then each kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as the last
@@ -47,11 +55,14 @@ Needs a CUDA device; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -341,7 +352,14 @@ def main() -> int:
         twin_rows_strips,
         twin_rows_strips_plain,
     )
-    from sift_tpu_torch.utils.keypoints import FIELDS
+    from sift_tpu_torch import cli
+    from sift_tpu_torch.models.descriptor import class_counts as desc_class_counts
+    from sift_tpu_torch.models.descriptor import compute_descriptors_all, desc_radius_classes
+    from sift_tpu_torch.models.orient import class_counts as ori_class_counts
+    from sift_tpu_torch.models.orient import ori_radius_classes, orient_all
+    from sift_tpu_torch.utils import native
+    from sift_tpu_torch.utils.io import save_image
+    from sift_tpu_torch.utils.keypoints import FIELDS, compact
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -979,6 +997,42 @@ def main() -> int:
               counts={k: v.tolist() for k, v in dc.items()}))
     del dk, dc, dstaged
 
+    # -- phase 8c: the pair CLI on the CAVE 00 / 01 frames written as PNG:
+    # ``cli.main`` in this process, counted, then ``python -m sift_tpu_torch``
+    # as a user runs it -------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pngs = [str(tmp / f"cave0{i}.png") for i in (0, 1)]
+        for path, o in zip(pngs, (o1, o2)):
+            save_image(path, o["input"])
+        printed = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main([*pngs, "--json", "--out-dir", str(tmp / "in_process")])
+        launches["cli"] = read_counts()
+        need(rc == 0, f"cli.main exited {rc}")
+        expect_launches("cli", dict(octave_front_twin=octaves, blur_pass=1, top2=1,
+                                    octave_front=0, cube_pack=0, octave_blur=0, twin_rows=0,
+                                    twin_rows_2d=0))
+        in_process = json.loads(printed.getvalue().strip().splitlines()[-1])
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sift_tpu_torch", *pngs, "--json",
+                               "--out-dir", str(tmp / "out")],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_wall_s = time.perf_counter() - t
+        need(proc.returncode == 0,
+             f"python -m sift_tpu_torch exited {proc.returncode}: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        for what, got in (("cli.main", in_process), ("python -m sift_tpu_torch", summary)):
+            need((got["keypoints1"], got["keypoints2"], got["matches"])
+                 == (*WANT_KP, WANT_MATCHES), f"{what}: {got}")
+        for d in ("in_process", "out"):
+            for name in ("keypoints1.png", "keypoints2.png", "matches.png"):
+                need((tmp / d / name).is_file(), f"the CLI wrote no {d}/{name}")
+    emit(dict(phase="cli", command="python -m sift_tpu_torch cave00.png cave01.png --json",
+              summary=summary, in_process_summary=in_process, subprocess_wall_s=cli_wall_s,
+              native_decoder=native.available(), pngs_written=True, launches=launches["cli"]))
+
     # -- phase 9: timing of the sweeps, the stages of the front-twin and the
     # front route, the other routes and the kernels ----------------------------
     def sweep(c=cfg, route=None):
@@ -1059,6 +1113,72 @@ def main() -> int:
               window5_route_sweep_ms=window5_ms,
               staged_ms_per_frame=staged_ms,
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+
+    # -- phase 9b: the radius classes of orientation and descriptors against
+    # the worst-case window on the main path's buffers, in turns --------------
+    gsp, dsp, ms_, cs = S.front_twin(imgs, cfg)
+    kpr, _ = S.detect_refine(dsp, ms_, cs, cfg)
+    del dsp, ms_, cs
+    cand_c, peaks_c = orient_all(gsp, kpr, cfg)
+    cand_w, peaks_w = orient_all(gsp, kpr, cfg, classes=False)
+    for f in ("valid", "x", "y", "size", "octave", "layer"):
+        same(getattr(cand_c, f), getattr(cand_w, f), f"orientation candidates {f}, classes "
+             "vs the worst-case window")
+    need(int(peaks_c) == int(peaks_w), "ori_slots_max, classes vs the worst-case window")
+    allkp = S.dedup(compact(cand_c, cfg.ori_cap), cfg)
+    desc_c = compute_descriptors_all(gsp, allkp, cfg)
+    desc_w = compute_descriptors_all(gsp, allkp, cfg, classes=False)
+    ddiff = (desc_c.int() - desc_w.int())[allkp.valid].abs()
+
+    def stage_sweep(c):
+        """The main path's stages and the matcher with or without classes."""
+        g, d, m, n = S.front_twin(imgs, cfg)
+        k, _ = S.detect_refine(d, m, n, cfg)
+        del d, m, n
+        a = S.dedup(compact(orient_all(g, k, cfg, classes=c)[0], cfg.ori_cap), cfg)
+        desc = compute_descriptors_all(g, a, cfg, classes=c)
+        match_descriptors(desc[0::2], a.valid[0::2], desc[1::2], a.valid[1::2],
+                          cfg.ratio_threshold, device=dev)
+
+    def stage_pair(c):
+        """(orient stage, describe stage, sweep) ms."""
+        return (host_ms(lambda: compact(orient_all(gsp, kpr, cfg, classes=c)[0], cfg.ori_cap),
+                        TIMED_SWEEPS),
+                host_ms(lambda: compute_descriptors_all(gsp, allkp, cfg, classes=c),
+                        TIMED_SWEEPS),
+                host_ms(lambda: stage_sweep(c), TIMED_SWEEPS))
+
+    cls_turns = {True: [], False: []}
+    for c in (True, False, False, True):  # classes, worst case, worst case, classes
+        cls_turns[c].append(stage_pair(c))
+
+    def samples(radii, counts):
+        return sum(n * (2 * r + 1) ** 2 for r, n in zip(radii, counts))
+
+    ori_radii, desc_radii = ori_radius_classes(cfg), desc_radius_classes(cfg)
+    ori_n = ori_class_counts(gsp, kpr, cfg)
+    desc_n = desc_class_counts(gsp, allkp, cfg)
+    emit(dict(phase="radius_classes", batch=BATCH,
+              orient=dict(radii=ori_radii, lanes=ori_n,
+                          samples_share=samples(ori_radii, ori_n) / samples(
+                              [ori_radii[-1]], [sum(ori_n)]),
+                          ms_classes=[t[0] for t in cls_turns[True]],
+                          ms_worst_case=[t[0] for t in cls_turns[False]]),
+              describe=dict(radii=desc_radii, lanes=desc_n,
+                            samples_share=samples(desc_radii, desc_n) / samples(
+                                [desc_radii[-1]], [sum(desc_n)]),
+                            ms_classes=[t[1] for t in cls_turns[True]],
+                            ms_worst_case=[t[1] for t in cls_turns[False]]),
+              sweep_ms_classes=[t[2] for t in cls_turns[True]],
+              sweep_ms_worst_case=[t[2] for t in cls_turns[False]],
+              turns="classes, worst case, worst case, classes; each the mean of "
+                    f"{TIMED_SWEEPS} calls; a sweep is the main path's stages and the "
+                    "matcher called one by one",
+              candidates_identical=True,
+              pori_max_abs_diff=float((cand_c.pori - cand_w.pori)[cand_c.valid].abs().max()),
+              desc_bytes=int(ddiff.numel()), desc_bytes_differ=int((ddiff != 0).sum()),
+              desc_max_abs_diff=int(ddiff.max())))
+    del gsp, kpr, cand_c, cand_w, allkp, desc_c, desc_w
 
     f_ms = cuda_ms(lambda: run_f(octave_front_twin, gk, pkk), KERNEL_REPS)
     f_plain_ms = cuda_ms(lambda: run_f(octave_front_twin_plain, gk, pkk), 3)

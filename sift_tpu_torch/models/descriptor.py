@@ -6,8 +6,10 @@ keypoint, 2-sparse one-hot factors along the row, column and orientation
 bins whose contraction is the histogram, hist[r, c, o] = sum_s R[s, r] *
 C[s, c] * O[s, o], keeping the reference's product order
 ((magnitude * f_r) * f_c) * f_o.  Only valid lanes are computed (invalid
-lanes' descriptors are zero, as in the JAX package); every lane uses the
-worst-case window.
+lanes' descriptors are zero, as in the JAX package).  Outside the
+float64 parity profile each lane reads the smallest window of the radius
+classes (20, 24, 28, 32, 36, R) that covers its own radius
+(``gather.by_radius_class``); float64 reads the worst-case window alone.
 """
 
 from __future__ import annotations
@@ -25,7 +27,14 @@ from sift_tpu_torch.config import (
     SiftConfig,
 )
 from sift_tpu_torch.models.orient import max_size_octave
-from sift_tpu_torch.ops.gather import build_multi_rows, gather_patches, lut, padded_chunks
+from sift_tpu_torch.ops.gather import (
+    build_multi_rows,
+    by_radius_class,
+    class_of,
+    gather_patches,
+    lut,
+    radius_classes,
+)
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -34,6 +43,16 @@ def desc_radius_bound(cfg: SiftConfig) -> int:
     """Static bound for the descriptor radius (src/sift.cpp:636-639)."""
     hw = cfg.desc_scale_factor * max_size_octave(cfg)
     return int(math.ceil(hw * 0.5 * math.sqrt(2.0) * (DESC_HIST_WIDTH + 1.0) + 1.0))
+
+
+def desc_radius_classes(cfg: SiftConfig, classes: bool = True) -> list[int]:
+    """The descriptor windows' radii (the JAX package's dispatch classes,
+    sift_tpu/models/descriptor.py:241); float64, or ``classes=False``, runs
+    the worst-case window alone."""
+    r_max = desc_radius_bound(cfg)
+    if not classes or cfg.dtype == torch.float64:
+        return [r_max]
+    return radius_classes((20, 24, 28, 32, 36), r_max)
 
 
 def _descriptors(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, hw, ca, sa,
@@ -120,18 +139,17 @@ def hist_to_desc(hist: torch.Tensor) -> torch.Tensor:
     return val.clamp_max(255).to(torch.uint8)
 
 
-def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
-                            octave_of_volume: tuple[int, ...] | None = None) -> torch.Tensor:
-    """Descriptors of a (B, n) post-dedup keypoint buffer in input-image
-    coordinates: (B, n, 128) uint8, zero on invalid lanes.
-    ``octave_of_volume``: as in ``orient_all``."""
-    bsz, n = kp.x.shape
-    dtype = kp.x.dtype
-    dev = kp.x.device
-    octaves = len(sp.shapes)
-    r = desc_radius_bound(cfg)
-    fast = dtype != torch.float64
+# Position of the radius among ``_lane_args``'s per-lane arguments.
+_RADIUS = 7
 
+
+def _lane_args(sp, kp: Keypoints, cfg: SiftConfig, octave_of_volume):
+    """The valid lanes of ``kp`` (flat indices) and their arguments of
+    ``_descriptors``: (img, oct_sel, layer_c, xc, yc, x, y, radius, hw,
+    cos, sin, pori, wl, hl)."""
+    n = kp.x.shape[1]
+    dtype = kp.x.dtype
+    octaves = len(sp.shapes)
     lanes = kp.valid.reshape(-1).nonzero()[:, 0]
     img = lanes // n
     kx, ky, ksize, kpori, koct, klayer = (
@@ -158,15 +176,34 @@ def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
     xc = torch.minimum(x.clamp_min(0), wl - 1)
     yc = torch.minimum(y.clamp_min(0), hl - 1)
     cos_a, sin_a = torch.cos(kpori), torch.sin(kpori)
+    return lanes, (img, oct_sel, layer_c, xc, yc, x, y, radius, hw_safe, cos_a, sin_a, kpori,
+                   wl, hl)
 
+
+def class_counts(sp, kp: Keypoints, cfg: SiftConfig, classes: bool = True) -> list[int]:
+    """Valid lanes of ``kp`` per window of ``desc_radius_classes``."""
+    radii = desc_radius_classes(cfg, classes)
+    radius = _lane_args(sp, kp, cfg, None)[1][_RADIUS]
+    return torch.bincount(class_of(radius, radii), minlength=len(radii)).tolist()
+
+
+def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
+                            octave_of_volume: tuple[int, ...] | None = None,
+                            classes: bool = True) -> torch.Tensor:
+    """Descriptors of a (B, n) post-dedup keypoint buffer in input-image
+    coordinates: (B, n, 128) uint8, zero on invalid lanes.
+    ``octave_of_volume``: as in ``orient_all``; ``classes=False``: every
+    lane in the worst-case window (``desc_radius_classes``)."""
+    bsz, n = kp.x.shape
+    dev = kp.x.device
+    fast = kp.x.dtype != torch.float64
+    lanes, args = _lane_args(sp, kp, cfg, octave_of_volume)
     chunk = 512 if dev.type == "cuda" else 64  # lanes per window batch
-    pad, chunks = padded_chunks(len(lanes), chunk, dev)
-    args = [a[pad] for a in (img, oct_sel, layer_c, xc, yc, x, y, radius, hw_safe,
-                             cos_a, sin_a, kpori, wl, hl)]
     desc = torch.zeros((bsz * n, 128), dtype=torch.uint8, device=dev)
-    if chunks:
-        parts = [_descriptors(sp, *(a[s] for a in args), r, fast) for s in chunks]
-        desc[lanes] = torch.cat(parts)[: len(lanes)]
+    if len(lanes):
+        desc[lanes] = by_radius_class(
+            args[_RADIUS], desc_radius_classes(cfg, classes), chunk, args,
+            lambda a, r: _descriptors(sp, *a, r, fast))
     return desc.reshape(bsz, n, 128)
 
 

@@ -7,9 +7,11 @@ radius round(3 * 1.5 * size) is bounded (refined layers stay in
 36-bin histogram is a masked one-hot contraction; the reference's in-place
 sequential smoothing is reproduced bin by bin on the (bins, lanes) layout.
 
-Only valid lanes are computed (invalid lanes would contribute nothing);
-one window serves every lane (the JAX package's per-chunk radius classes
-are later work: shrinking a window only drops exact-zero terms).
+Only valid lanes are computed (invalid lanes would contribute nothing).
+Outside the float64 parity profile each lane reads the smallest window of
+the radius classes (11, 13, R) that covers its own radius
+(``gather.by_radius_class``); float64 reads the one (2R+3)^2 window, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -20,7 +22,14 @@ import torch
 import torch.nn.functional as F
 
 from sift_tpu_torch.config import M_PI2, ORI_SMOOTH_ITERATIONS, SiftConfig
-from sift_tpu_torch.ops.gather import build_multi_rows, gather_patches, lut, padded_chunks
+from sift_tpu_torch.ops.gather import (
+    build_multi_rows,
+    by_radius_class,
+    class_of,
+    gather_patches,
+    lut,
+    radius_classes,
+)
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -33,6 +42,16 @@ def max_size_octave(cfg: SiftConfig) -> float:
 def ori_radius_bound(cfg: SiftConfig) -> int:
     """Static bound for round(3 * ori_sigma_factor * size) (src/sift.cpp:463)."""
     return int(math.ceil(3.0 * cfg.ori_sigma_factor * max_size_octave(cfg) + 0.5))
+
+
+def ori_radius_classes(cfg: SiftConfig, classes: bool = True) -> list[int]:
+    """The orientation windows' radii (the JAX package's dispatch classes,
+    sift_tpu/models/orient.py:172); float64, or ``classes=False``, runs
+    the worst-case window alone."""
+    r_max = ori_radius_bound(cfg)
+    if not classes or cfg.dtype == torch.float64:
+        return [r_max]
+    return radius_classes((11, 13), r_max)
 
 
 def _histograms(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
@@ -70,24 +89,16 @@ def _histograms(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
     return torch.bmm(contrib.reshape(len(x), 1, -1), onehot)[:, 0]
 
 
-def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
-               octave_of_volume: tuple[int, ...] | None = None):
-    """Orientation candidates of a (B, n) keypoint buffer in initial-image
-    coordinates.  Returns (candidates (B, n * slots) in input-image
-    coordinates, in (lane, bin) order with a validity mask, and max_peaks:
-    the most peaks any valid keypoint had; > slots means candidates were
-    dropped).  ``octave_of_volume``: the true octave of each volume of
-    ``sp`` when it does not start at octave 0 (the staged path's
-    one-octave spaces)."""
-    bsz, n = kp.x.shape
-    dtype = kp.x.dtype
-    dev = kp.x.device
-    nb = cfg.num_bins
-    slots = cfg.ori_cand_slots
-    octaves = len(sp.shapes)
-    r = ori_radius_bound(cfg)
-    fast = dtype != torch.float64
+# Position of the radius among ``_lane_args``'s per-lane arguments.
+_RADIUS = 7
 
+
+def _lane_args(sp, kp: Keypoints, cfg: SiftConfig, octave_of_volume):
+    """The valid lanes of ``kp`` (flat indices) and their arguments of
+    ``_histograms``: (img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
+    wl, hl)."""
+    n = kp.x.shape[1]
+    octaves = len(sp.shapes)
     lanes = kp.valid.reshape(-1).nonzero()[:, 0]
     img = lanes // n
 
@@ -97,7 +108,7 @@ def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
     kx, ky, ksize, koct, klayer = (pick(a) for a in (kp.x, kp.y, kp.size, kp.octave, kp.layer))
     oov = octave_of_volume or tuple(range(octaves))
     oct_sel = (koct - oov[0]).clamp(0, octaves - 1)
-    pow_denom = lut([1.0 / math.pow(2, o) for o in oov], oct_sel, dtype)
+    pow_denom = lut([1.0 / math.pow(2, o) for o in oov], oct_sel, kp.x.dtype)
     x = round_half_away(kx * pow_denom).to(torch.int64)  # src/sift.cpp:458
     y = round_half_away(ky * pow_denom).to(torch.int64)
     scale = cfg.ori_sigma_factor * (ksize * pow_denom)
@@ -108,13 +119,41 @@ def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
     layer_c = klayer.long().clamp(0, sp.shapes[0][0] - 1)
     xc = torch.minimum(x.clamp_min(0), wl - 1)
     yc = torch.minimum(y.clamp_min(0), hl - 1)
+    return lanes, (img, oct_sel, layer_c, xc, yc, x, y, radius, edenom, wl, hl)
 
+
+def class_counts(sp, kp: Keypoints, cfg: SiftConfig, classes: bool = True) -> list[int]:
+    """Valid lanes of ``kp`` per window of ``ori_radius_classes``."""
+    radii = ori_radius_classes(cfg, classes)
+    radius = _lane_args(sp, kp, cfg, None)[1][_RADIUS]
+    return torch.bincount(class_of(radius, radii), minlength=len(radii)).tolist()
+
+
+def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
+               octave_of_volume: tuple[int, ...] | None = None, classes: bool = True):
+    """Orientation candidates of a (B, n) keypoint buffer in initial-image
+    coordinates.  Returns (candidates (B, n * slots) in input-image
+    coordinates, in (lane, bin) order with a validity mask, and max_peaks:
+    the most peaks any valid keypoint had; > slots means candidates were
+    dropped).  ``octave_of_volume``: the true octave of each volume of
+    ``sp`` when it does not start at octave 0 (the staged path's
+    one-octave spaces).  ``classes=False``: every lane in the worst-case
+    window (``ori_radius_classes``)."""
+    bsz, n = kp.x.shape
+    dtype = kp.x.dtype
+    dev = kp.x.device
+    nb = cfg.num_bins
+    slots = cfg.ori_cand_slots
+    fast = dtype != torch.float64
+
+    lanes, args = _lane_args(sp, kp, cfg, octave_of_volume)
     chunk = 2048 if dev.type == "cuda" else 256  # lanes per one-hot contraction
-    pad, chunks = padded_chunks(len(lanes), chunk, dev)
-    args = [a[pad] for a in (img, oct_sel, layer_c, xc, yc, x, y, radius, edenom, wl, hl)]
-    parts = [_histograms(sp, *(a[s] for a in args), nb, r, fast) for s in chunks]
-    hist = (torch.cat(parts)[: len(lanes)] if parts
-            else torch.zeros((0, nb), dtype=dtype, device=dev))
+    if len(lanes):
+        hist = by_radius_class(
+            args[_RADIUS], ori_radius_classes(cfg, classes), chunk, args,
+            lambda a, r: _histograms(sp, *a, nb, r, fast))
+    else:
+        hist = torch.zeros((0, nb), dtype=dtype, device=dev)
 
     # In-place circular smoothing, twice (src/sift.cpp:496-504): updated
     # bins feed later ones, exactly as the reference's loop.

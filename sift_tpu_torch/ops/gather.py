@@ -59,6 +59,49 @@ def padded_chunks(n: int, chunk: int, device):
     return idx, [slice(i, i + chunk) for i in range(0, n_pad, chunk)]
 
 
+def radius_classes(candidates, r_max: int) -> list[int]:
+    """A stage's window radii, ascending: the candidates below ``r_max``,
+    then ``r_max`` (the JAX package's dispatch classes)."""
+    return [r for r in candidates if r < r_max] + [r_max]
+
+
+def class_of(radius: torch.Tensor, radii) -> torch.Tensor:
+    """Each lane's class: the index of the smallest of ``radii`` that covers
+    its radius (``searchsorted``), the last class above them all."""
+    t = torch.tensor(radii, dtype=radius.dtype, device=radius.device)
+    return torch.searchsorted(t, radius).clamp_max(len(radii) - 1)
+
+
+def by_radius_class(radius: torch.Tensor, radii, chunk: int, args, fn) -> torch.Tensor:
+    """``fn(lane args, r)`` over L >= 1 lanes, each lane in the window of its
+    own class (``class_of``), results in lane order.
+
+    A window wider than a lane's radius adds only masked exact zeros, so the
+    class moves a lane's sums by their order alone, and it depends on the
+    lane alone: every route and the staged path give a lane the same
+    window.  The lanes are sorted stably by class, the per-class counts
+    read to the host at once, and each class runs in ``padded_chunks`` of a
+    fixed lane count (``chunk`` at the largest window, more lanes to a
+    smaller one at about the same number of samples)."""
+    cls = class_of(radius, radii)
+    order = torch.argsort(cls, stable=True)
+    counts = torch.bincount(cls, minlength=len(radii)).tolist()
+    side = 2 * radii[-1] + 1
+    parts, start = [], 0
+    for r, c in zip(radii, counts):
+        if c:
+            lanes = chunk * max(1, side * side // (2 * r + 1) ** 2)
+            pad, chunks = padded_chunks(c, lanes, radius.device)
+            sel = order[start:start + c][pad]
+            sub = [a[sel] for a in args]
+            parts.append(torch.cat([fn([a[s] for a in sub], r) for s in chunks])[:c])
+        start += c
+    sorted_out = torch.cat(parts)
+    out = torch.empty_like(sorted_out)
+    out[order] = sorted_out
+    return out
+
+
 def lut(values, sel: torch.Tensor, dtype) -> torch.Tensor:
     """Per-lane lookup of a tiny static table: out[i] = values[sel[i]]."""
     table = torch.tensor(values, dtype=dtype, device=sel.device)
