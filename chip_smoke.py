@@ -38,8 +38,20 @@ anchor (1286 / 1430 keypoints, 269 matches), which the CPU tests hold in
 float64.  Then the pair CLI on the CAVE 00 / 01 frames written as PNG,
 in this process (``cli.main``, counted: D, F, B) and as the command a
 user runs (``python -m sift_tpu_torch a.png b.png --json``): 677 / 1067
-keypoints, 165 matches, three PNGs.  Every launch counter is set to 0
-just before a path and read just after.  Then it times the sweeps, each
+keypoints, 165 matches, three PNGs.  Then stitching (phase ``stitch``):
+the 35-frame CAVE-01 scene (tests/data/scene_oracle) written as PNG, no
+graph file, so the chain graph centred at 17, default capacities, through
+``python -m sift_tpu_torch stitch`` in this process (counted: D 35, F 35
+x octaves, B 34) and as a subprocess; the same scene at library level
+(keypoints per frame against the oracle's, 677 / 1067 on frames 00 / 01,
+chain-edge matches against PARITY.md's float64 counts, 165 on edge 0-1,
+RANSAC inliers, canvas, which blend ran, a finite panorama in [0, 255],
+the detection, edge solve and composite timed); frames 00-04 on the card
+against the CPU on the same keypoints and hypotheses (corners within 0.05
+px, 99.5% of pixels within 1 grey level); a planted RANSAC tie; and the
+cylindrical driver on three crops of frame 05 within the JAX test's
+bounds.  Every launch counter is set to 0 just before a path and read
+just after.  Then it times the sweeps, each
 stage, the staged path and the other routes; then the radius classes of
 orientation and descriptors (phase ``radius_classes``) against the
 worst-case window on the main path's buffers, in turns: lanes per class,
@@ -64,6 +76,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -75,6 +88,20 @@ WANT_MATCHES = 165
 DEMO_KP = (1286, 1430)  # the demo pair's anchor (oracle_demo{1,2}.npz)
 DEMO_MATCHES = 269
 DEMO_CAPS = dict(extrema_cap=8192, kp_cap=2048, ori_cap=2048)
+# The CAVE-01 scene (tests/data/scene_oracle): 35 frames, the chain graph
+# (i, i + 1) centred at 17, and the float64 match counts of its 34 chain
+# edges in the reference's direction (i -> i + 1; PARITY.md, whole-scene
+# audit).
+SCENE_FRAMES = 35
+CHAIN_MATCHES_F64 = (165, 251, 119, 188, 170, 197, 260, 294, 153, 111, 129, 138, 194, 185,
+                     160, 109, 108, 115, 58, 43, 173, 68, 109, 82, 72, 173, 141, 102, 79, 44,
+                     126, 73, 146, 179)
+CYL_CAPS = dict(extrema_cap=1024, kp_cap=512, ori_cap=2048)
+# The default capacities' Newton cascade keeps n // 4 = 2048 lanes after
+# step 1 (models/detect.refine_cascade_caps); the scene needs more (frame
+# 12: 2226), so the library-level scene runs with extrema_cap 12288
+# (cascade 3072 / 1536) beside the defaults that the command uses.
+SCENE_CAPS = dict(extrema_cap=12288)
 TIMED_SWEEPS = 5
 KERNEL_REPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
@@ -308,6 +335,7 @@ def library_blur(img, hk):
 def main() -> int:
     import numpy as np
     import torch
+    from PIL import Image as PILImage
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -357,7 +385,11 @@ def main() -> int:
     from sift_tpu_torch.models.descriptor import compute_descriptors_all, desc_radius_classes
     from sift_tpu_torch.models.orient import class_counts as ori_class_counts
     from sift_tpu_torch.models.orient import ori_radius_classes, orient_all
+    from sift_tpu_torch.models import blend as BL
+    from sift_tpu_torch.models import stitch as ST
+    from sift_tpu_torch.models.cylindrical import stitch_scene_cylindrical
     from sift_tpu_torch.utils import native
+    from sift_tpu_torch.utils.stitch_graph import StitchGraph, chain_graph
     from sift_tpu_torch.utils.io import save_image
     from sift_tpu_torch.utils.keypoints import FIELDS, compact
 
@@ -1032,6 +1064,265 @@ def main() -> int:
     emit(dict(phase="cli", command="python -m sift_tpu_torch cave00.png cave01.png --json",
               summary=summary, in_process_summary=in_process, subprocess_wall_s=cli_wall_s,
               native_decoder=native.available(), pngs_written=True, launches=launches["cli"]))
+
+    # -- phase 8d: stitching on the CAVE-01 scene (35 frames, 640x480, no
+    # graph file: the chain graph centred at 17), default capacities: the
+    # ``stitch`` command in this process (counted) and as a subprocess, the
+    # scene at library level, the card against the CPU on frames 00-04, and
+    # the cylindrical driver --------------------------------------------------
+    blends = {"multiband": 0, "feather": 0}
+
+    def counted_blend(mod, name, key):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            blends[key] += 1
+            return fn(*a, **k)
+        setattr(mod, name, run)
+
+    counted_blend(BL, "_multiband_scan", "multiband")
+    counted_blend(ST, "_blend_strip", "feather")
+
+    def blend_ran(before):
+        got = [k for k in blends if blends[k] > before[k]]
+        need(len(got) == 1, f"blends run: {blends} after {before}")
+        return got[0]
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def pano_ok(pano, what, blend):
+        """Finite and not negative; at most 255 where the multiband blend
+        ran (it clips).  The feather fallback returns the gain-scaled
+        average unclipped, as the JAX package's ``blend_warped`` does, so
+        there the bound holds for the panorama as written (``save_image``
+        clips).  Returns the share of non-black pixels."""
+        bad = int((~np.isfinite(pano)).sum())
+        need(bad == 0 and pano.min() >= 0, f"{what}: {bad} non-finite values, min {pano.min()}")
+        need(blend == "feather" or pano.max() <= 255, f"{what}: max {pano.max()} after {blend}")
+        return float((pano.max(-1) > 0).mean())
+
+    scfg_default = SiftConfig()
+    stcfg = SiftConfig(**SCENE_CAPS)
+    frames35 = [np.load(DATA / "scene_oracle" / f"cave01_{i:02d}.npz") for i in range(SCENE_FRAMES)]
+    graph = chain_graph(SCENE_FRAMES)
+    mid = SCENE_FRAMES // 2
+    tree = [(i, p) for i, p in graph.bfs_parents().items() if i != mid]
+    need(graph.center_index == mid and sorted(tree) == sorted(
+        [(i, i + 1) for i in range(mid)] + [(i, i - 1) for i in range(mid + 1, SCENE_FRAMES)]),
+        f"chain graph {graph}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sdir = tmp / "cave01"
+        sdir.mkdir()
+        for i, o in enumerate(frames35):
+            save_image(str(sdir / f"{i:02d}.png"), o["input"])
+        printed = io.StringIO()
+        before = dict(blends)
+        zero_counts()
+        with contextlib.redirect_stdout(printed):
+            rc, cli_stitch_s = host_s(lambda: cli.main(
+                ["stitch", str(sdir), "--out", str(tmp / "pano_in_process.png")]))
+        launches["stitch"] = read_counts()
+        need(rc == 0, f"cli.main stitch exited {rc}")
+        expect_launches("stitch", dict(octave_front_twin=SCENE_FRAMES * octaves,
+                                       blur_pass=SCENE_FRAMES, top2=SCENE_FRAMES - 1,
+                                       octave_front=0, cube_pack=0, octave_blur=0,
+                                       twin_rows=0, twin_rows_2d=0))
+        cli_blend = blend_ran(before)
+        cli_line = printed.getvalue().strip().splitlines()[-1]
+        cli_png = np.asarray(PILImage.open(tmp / "pano_in_process.png"))
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sift_tpu_torch", "stitch", str(sdir),
+                               "--out", str(tmp / "pano.png")],
+                              cwd=ROOT, capture_output=True, text=True, timeout=900)
+        stitch_wall_s = time.perf_counter() - t
+        need(proc.returncode == 0,
+             f"python -m sift_tpu_torch stitch exited {proc.returncode}: {proc.stderr[-2000:]}")
+        need((tmp / "pano.png").is_file(), "python -m sift_tpu_torch stitch wrote no PNG")
+        sub_line = proc.stdout.strip().splitlines()[-1]
+        sub_warnings = [ln for ln in proc.stderr.splitlines() if "warning:" in ln]
+        sub_png = np.asarray(PILImage.open(tmp / "pano.png"))
+
+    # The scene at library level: detection frame by frame (``stitch_scene``'s
+    # calls, with the true counts) at the command's default capacities
+    # (what they clip is printed) and at capacities that cover every stage
+    # (gated); on the latter, every chain edge's matches in the reference's
+    # direction, each tree edge's RANSAC inliers, the edge solve and the
+    # composite, timed.
+    imgs35 = [o["input"].astype(np.float32) for o in frames35]
+
+    def clipped(counts, c):
+        """The capacities of ``c`` that a frame's true counts exceed."""
+        over = [f"{k} {int(counts[k].max())} > {cap}" for k, cap in (
+            ("extrema", c.extrema_cap), ("refined", c.kp_cap), ("oriented", c.ori_cap))
+            if int(counts[k].max()) > cap]
+        for ph, (cap, _) in enumerate(refine_cascade_caps(c, c.extrema_cap)):
+            got = int(counts["refine_active"][:, ph].max())
+            if got > cap:
+                over.append(f"refine_active[{ph}] {got} > {cap}")
+        if int(counts["ori_slots_max"]) > c.ori_cand_slots:
+            over.append(f"ori_slots_max {int(counts['ori_slots_max'])} > {c.ori_cand_slots}")
+        return over
+
+    def detect_all(c):
+        out = []
+        for img in imgs35:
+            kp, n = S.detect_and_describe_batch(img[None], c, return_counts=True, device=dev)
+            out.append((kp, n))
+        return out
+
+    detected, detect_s = host_s(lambda: detect_all(scfg_default))
+    clipped_default = {f"{i:02d}": clipped(n, scfg_default) for i, (_, n) in enumerate(detected)}
+    clipped_default = {k: v for k, v in clipped_default.items() if v}
+    default_kp = [int(kp.valid.sum()) for kp, _ in detected]
+    del detected
+    warned = {ln.split(".png:")[0] for ln in sub_warnings}
+    need(warned == set(clipped_default),
+         f"the command warned for frames {sorted(warned)}, its capacities clip {clipped_default}")
+    detected, detect_covering_s = host_s(lambda: detect_all(stcfg))
+    for i, (kp, n) in enumerate(detected):
+        honest(kp, n, f"scene frame {i:02d}", stcfg)
+    kps35 = [kp.map(lambda a: a[0]) for kp, _ in detected]
+    del detected
+    scene_kp = [int(k.valid.sum()) for k in kps35]
+    oracle_kp = [len(o["final.x"]) for o in frames35]
+    need(scene_kp[:2] == list(WANT_KP), f"scene frames 00 / 01: {scene_kp[:2]} keypoints")
+    chain_n, tree_inl = [], {}
+    for i in range(SCENE_FRAMES - 1):
+        chain_n.append(ST.match_points(kps35[i], kps35[i + 1], stcfg.ratio_threshold)[2].sum())
+    for i, p in tree:
+        p1, p2, ok = ST.match_points(kps35[i], kps35[p], stcfg.ratio_threshold)
+        tree_inl[(i, p)] = ST.ransac_homography(p1, p2, ok, 2048)[2]
+    chain_n = torch.stack(chain_n).tolist()
+    tree_inl = dict(zip(tree_inl, torch.stack(list(tree_inl.values())).tolist()))
+    need(chain_n[0] == WANT_MATCHES, f"scene edge 0-1: {chain_n[0]} matches")
+    h_edge, edge_s = host_s(lambda: ST.solve_edge_homographies(kps35, graph, stcfg))
+    # The same solve once more, counting the calls that wait for the device
+    # (PyTorch's sync debug mode warns at each): the driver's one read of
+    # all edge homographies, and whatever a library call adds.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ST.solve_edge_homographies(kps35, graph, stcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync_kinds = {}
+    for w in caught:
+        if "synchronizing" in str(w.message):
+            where = f"{Path(w.filename).name}:{w.lineno}"
+            sync_kinds[where] = sync_kinds.get(where, 0) + 1
+    hc = ST.chain_to_center(graph, h_edge)
+    order = sorted(hc)
+    c_h, c_w, c_t = ST._canvas_layout([imgs35[i] for i in order], [hc[i] for i in order])
+    before = dict(blends)
+    pano35, compose_s = host_s(lambda: ST.compose_scene(imgs35, graph, h_edge, device=dev))
+    scene_blend = blend_ran(before)
+    scene_cover = pano_ok(pano35, "35-frame scene", scene_blend)
+    need(pano35.shape[:2] == cli_png.shape[:2] == sub_png.shape[:2],
+         f"panorama shapes {pano35.shape} / {cli_png.shape} / {sub_png.shape}")
+    lib_png = np.clip(pano35, 0, 255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, png_write_s = host_s(lambda: save_image(str(Path(tmp) / "pano.png"), pano35))
+    # The composite's first part alone (its low-resolution warps and the
+    # host's pairwise overlap loop).
+    _, gains_s = host_s(lambda: BL.estimate_gains(
+        [imgs35[i] for i in order], [c_t @ hc[i] for i in order], c_h, c_w, device=dev))
+
+    # The card against the CPU on frames 00-04 (the chain centred at 2), on
+    # the card's keypoints copied to the CPU: the same hypotheses (the
+    # sampler's CPU generator), corners and pixels compared.
+    sub = chain_graph(5)
+    kps5 = kps35[:5]
+    kps5_cpu = [k.map(lambda a: a.cpu()) for k in kps5]
+    for i, p in [(i, p) for i, p in sub.bfs_parents().items() if i != sub.center_index]:
+        ok = ST.match_points(kps5[i], kps5[p], stcfg.ratio_threshold)[2]
+        same(ST.sample_hypotheses(ok, 2048, 0).cpu(), ST.sample_hypotheses(ok.cpu(), 2048, 0),
+             f"RANSAC samples of edge {i}-{p}, card vs CPU")
+    h5_card = ST.solve_edge_homographies(kps5, sub, stcfg)
+    h5_cpu = ST.solve_edge_homographies(kps5_cpu, sub, stcfg)
+    before = dict(blends)
+    pano5_card, compose5_s = host_s(lambda: ST.compose_scene(imgs35[:5], sub, h5_card, device=dev))
+    blend5 = blend_ran(before)
+    pano5_cpu = ST.compose_scene(imgs35[:5], sub, h5_cpu, device="cpu")
+    need(blend_ran(before) == blend5, "the CPU run took another blend")
+    corner_err = 0.0
+    hc_card, hc_cpu = ST.chain_to_center(sub, h5_card), ST.chain_to_center(sub, h5_cpu)
+    for i in range(5):
+        cs = np.array([[0, 0, 1], [639, 0, 1], [0, 479, 1], [639, 479, 1]], np.float64)
+        a, b = cs @ hc_card[i].T, cs @ hc_cpu[i].T
+        corner_err = max(corner_err, float(np.abs(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]).max()))
+    need(corner_err <= 0.05, f"frames 00-04: corners card vs CPU {corner_err} px")
+    need(pano5_card.shape == pano5_cpu.shape,
+         f"frames 00-04: canvas {pano5_card.shape} vs {pano5_cpu.shape}")
+    pano_ok(pano5_card, "frames 00-04 on the card", blend5)
+    pano_ok(pano5_cpu, "frames 00-04 on the CPU", blend5)
+    diff5 = np.abs(pano5_card - pano5_cpu).max(-1)
+    within1 = float((diff5 <= 1.0).mean())
+    need(within1 >= 0.995, f"frames 00-04: {within1} of pixels within 1 grey level")
+    need("multiband" in (scene_blend, blend5), "no scene run reached multiband_blend")
+
+    # A planted tie on the card: two hypotheses with 20 inliers each; the
+    # first one wins (jnp.argmax's rule).
+    rng = np.random.default_rng(6)
+    pa, pb = rng.uniform(0, 400, (2, 20, 2))
+    tie_p1 = torch.from_numpy(np.concatenate([pa, pb])).to(dev)
+    tie_p2 = torch.from_numpy(np.concatenate([pa * 1.02 + 7.0, pb + [-40.0, 25.0]])).to(dev)
+    tie_ok = torch.ones(40, dtype=torch.bool, device=dev)
+    for rows, first in (([[0, 5, 11, 17], [20, 26, 31, 37]], 0), ([[20, 26, 31, 37], [0, 5, 11, 17]], 20)):
+        _, mask, n = ST.ransac_with_samples(tie_p1, tie_p2, tie_ok, torch.tensor(rows, device=dev))
+        need(int(n) == 20 and bool(mask[first:first + 20].all()),
+             f"planted RANSAC tie: {int(n)} inliers, not the first hypothesis's")
+
+    # The cylindrical driver on the card: the JAX test's three crops of
+    # frame 05, focal 2000, its capacities and bounds.
+    tex = imgs35[5]
+    crops = [tex[:, 0:360], tex[:, 140:500], tex[:, 280:640]]
+    cgraph = StitchGraph(center_index=1, center_rotation=0.0, images_count=3,
+                         edges=((0, 1), (1, 2)))
+    diag = {}
+    before = dict(blends)
+    cpano, cyl_s = host_s(lambda: stitch_scene_cylindrical(
+        crops, cgraph, SiftConfig(**CYL_CAPS), focal=2000.0, diagnostics=diag, device=dev))
+    cyl_blend = blend_ran(before)
+    pano_ok(cpano, "cylindrical", cyl_blend)
+    oh, ow, ot = ST._canvas_layout(diag["warped"], diag["homographies"])
+    cyl_ci = BL.overlap_consistency(diag["warped"], [ot @ h for h in diag["homographies"]],
+                                    oh, ow, device=dev)
+    need(cpano.shape[0] >= 400 and cpano.shape[1] >= 560 and cpano.std() > 10 and cyl_ci < 6.0,
+         f"cylindrical: shape {cpano.shape}, std {cpano.std()}, overlap consistency {cyl_ci}")
+    emit(dict(phase="stitch", nvidia_smi=smi, frames=SCENE_FRAMES, frame_hw=list(imgs35[0].shape[:2]),
+              caps=dict(extrema_cap=stcfg.extrema_cap, kp_cap=stcfg.kp_cap, ori_cap=stcfg.ori_cap),
+              command_caps=dict(extrema_cap=scfg_default.extrema_cap, kp_cap=scfg_default.kp_cap,
+                                ori_cap=scfg_default.ori_cap),
+              clipped_at_command_caps=clipped_default, command_warnings=sub_warnings, keypoints_at_command_caps=default_kp,
+              graph=f"chain, center {mid}", command_line=sub_line, in_process_line=cli_line,
+              launches=launches["stitch"], cli_blend=cli_blend,
+              cli_in_process_s=cli_stitch_s, subprocess_wall_s=stitch_wall_s,
+              subprocess_png_equals_in_process=bool(np.array_equal(sub_png, cli_png)),
+              library_png_equals_cli=bool(np.array_equal(lib_png, cli_png)),
+              keypoints=scene_kp, oracle_keypoints=oracle_kp,
+              frames_at_oracle_count=sum(a == b for a, b in zip(scene_kp, oracle_kp)),
+              chain_matches=chain_n, chain_matches_f64=list(CHAIN_MATCHES_F64),
+              edges_at_f64_count=sum(a == b for a, b in zip(chain_n, CHAIN_MATCHES_F64)),
+              ransac_inliers={f"{i}-{p}": n for (i, p), n in tree_inl.items()},
+              canvas_hw=[c_h, c_w], scene_blend=scene_blend, scene_nonblack_share=scene_cover,
+              scene_max=float(pano35.max()), scene_share_above_255=float((pano35 > 255).mean()),
+              png_write_s=png_write_s, detect_s=detect_s, detect_covering_caps_s=detect_covering_s, edge_solve_s=edge_s, composite_s=compose_s, gains_s=gains_s,
+              edge_solve_syncs=sync_kinds,
+              frames_00_04=dict(canvas_hw=list(pano5_card.shape[:2]), blend=blend5,
+                                composite_s=compose5_s,
+                                corner_max_err_px=corner_err, within_1_grey_share=within1,
+                                max_abs_diff=float(diff5.max())),
+              cylindrical=dict(hw=list(cpano.shape[:2]), std=float(cpano.std()),
+                               overlap_consistency=cyl_ci, edge_residual_px=diag["edge_residual_px"],
+                               focal=diag["focal"], blend=cyl_blend, seconds=cyl_s)))
+    del kps35, kps5, kps5_cpu, pano35, pano5_card, pano5_cpu, cpano, diag
 
     # -- phase 9: timing of the sweeps, the stages of the front-twin and the
     # front route, the other routes and the kernels ----------------------------

@@ -7,8 +7,13 @@ CUDA card; ``--device cpu`` runs the float32 profile on the CPU, ``--f64``
 the float64 parity profile (on the CPU, as the JAX package's ``--f64``
 pins its CPU).  Without a card and without either, it fails.
 
+``python -m sift_tpu_torch stitch <scene_dir>`` stitches a scene directory
+into one panorama (``models/stitch.stitch_scene``), on the card unless
+``--device cpu`` is given.
+
 Usage:
     python -m sift_tpu_torch <image1> <image2> [--out-dir DIR] [--ratio 0.75] ...
+    python -m sift_tpu_torch stitch <scene_dir> [--out panorama.png] [--device cpu]
 """
 
 from __future__ import annotations
@@ -47,13 +52,71 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def stitch_main(argv) -> int:
-    """``stitch`` is the next slice of the port."""
-    print("sift_tpu_torch: the stitch subcommand is not ported yet (ROADMAP.md, queue 1); "
-          "run `python -m sift_tpu stitch` for now", file=sys.stderr)
-    return 2
+    """``sift_tpu_torch stitch <scene_dir>``: multi-image panorama.
+
+    The scene directory holds numbered images (00.jpg, 01.jpg, ...) and
+    optionally a ``*-STITCH-GRAPH.txt`` match graph; without one, a chain
+    graph over consecutive images centered on the middle image is used.
+    Runs on the card unless ``--device cpu`` is given.
+    """
+    import glob
+
+    p = argparse.ArgumentParser(prog="sift_tpu_torch stitch")
+    p.add_argument("scene_dir")
+    p.add_argument("--out", default="panorama.png")
+    p.add_argument("--hypotheses", type=int, default=2048)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to run (default: cuda)")
+    args = p.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("sift_tpu_torch stitch: no CUDA device; pass --device cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+
+    from sift_tpu_torch import SiftConfig
+    from sift_tpu_torch.models.sift import detect_and_describe_batch
+    from sift_tpu_torch.models.stitch import stitch_scene
+    from sift_tpu_torch.utils.io import load_image, save_image
+    from sift_tpu_torch.utils.stitch_graph import chain_graph, parse_stitch_graph
+
+    graphs = glob.glob(os.path.join(args.scene_dir, "*-STITCH-GRAPH.txt"))
+    images = sorted(
+        f for f in glob.glob(os.path.join(args.scene_dir, "*"))
+        if f.lower().endswith((".jpg", ".jpeg", ".png"))
+    )
+    if not images:
+        print(f"sift_tpu_torch stitch: no .jpg/.jpeg/.png images in {args.scene_dir}",
+              file=sys.stderr)
+        return 2
+    imgs = [load_image(f) for f in images]
+    if graphs:
+        graph = parse_stitch_graph(graphs[0])
+        if graph.images_count > len(imgs):
+            print(
+                f"warning: graph declares {graph.images_count} images, "
+                f"found {len(imgs)}; stitching the available subset"
+            )
+            graph = graph.subset(len(imgs))
+    else:
+        graph = chain_graph(len(imgs))
+    # Detection frame by frame with the true stage counts, so that a frame
+    # whose detections a capacity clipped is reported, as the pair command
+    # reports it.
+    cfg = SiftConfig()
+    kps = []
+    for path, img in zip(images, imgs):
+        kp, counts = detect_and_describe_batch(img[None], cfg, return_counts=True,
+                                               device=args.device)
+        _warn_capacity_overflow(counts, cfg, f"{os.path.basename(path)}: ")
+        kps.append(kp.map(lambda a: a[0]))
+    pano = stitch_scene(imgs, graph, cfg, num_hypotheses=args.hypotheses, kps=kps,
+                        device=args.device)
+    save_image(args.out, pano)
+    print(f"{args.out}: {pano.shape[1]}x{pano.shape[0]} from {len(imgs)} images")
+    return 0
 
 
-def _warn_capacity_overflow(counts, cfg) -> None:
+def _warn_capacity_overflow(counts, cfg, prefix: str = "") -> None:
     """Busy images can exceed the fixed stage capacities; the pipeline then
     keeps the first CAP detections (in scan order) instead of erroring.
     Check the true per-stage counts and tell the user to raise the caps
@@ -73,7 +136,7 @@ def _warn_capacity_overflow(counts, cfg) -> None:
         mx = int(torch.as_tensor(c).max())
         if mx > cap:
             print(
-                f"warning: {name} count {mx} exceeds capacity {cap}; "
+                f"{prefix}warning: {name} count {mx} exceeds capacity {cap}; "
                 f"detections were clipped — raise SiftConfig caps",
                 file=sys.stderr,
             )

@@ -149,8 +149,13 @@ def test_no_card_fails_unless_the_cpu_is_asked_for(pair, tmp_path, capsys):
 
 
 def test_stitch_is_refused_until_ported(capsys):
+    """``stitch`` is ported: it is refused only without a card and without
+    ``--device cpu`` (exit 2, a message naming ``--device cpu``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
     assert cli.main(["stitch", "scene_dir"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    err = capsys.readouterr()
+    assert "no CUDA device" in err.err and "--device cpu" in err.err and err.out == ""
 
 
 def test_capacity_warning_matches_jax(capsys):

@@ -68,3 +68,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     v = np.ones(4, bool)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         match_descriptors(d, v, d, v)
+
+
+def test_stitching_entry_points_default_to_cuda():
+    """Every stitching function that takes a device defaults to the card,
+    and without one ``stitch_scene`` and ``multiband_blend`` raise instead
+    of running on the CPU."""
+    import inspect
+
+    from sift_tpu_torch.models import blend, cylindrical, stitch
+    from sift_tpu_torch.utils.stitch_graph import chain_graph
+
+    fns = [stitch.stitch_scene, stitch.stitch_pair, stitch.compose_scene, stitch.composite,
+           stitch.blend_warped, blend.multiband_blend, blend.estimate_gains,
+           blend.overlap_consistency, cylindrical.stitch_scene_cylindrical]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    img = np.zeros((32, 48, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stitch.stitch_scene([img, img], chain_graph(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        blend.multiband_blend([img, img], [np.eye(3), np.eye(3)])
