@@ -27,7 +27,8 @@ import math
 import numpy as np
 import torch
 
-from sift_tpu_torch.models.geometry import min_eigvec
+from sift_tpu_torch.models import geometry
+from sift_tpu_torch.models.geometry import matmul3, min_eigvec
 from sift_tpu_torch.utils.numerics import resolve_device, to_i32, xdiv
 
 # --------------------------------------------------------------------------
@@ -93,33 +94,10 @@ def _apply_h(h: torch.Tensor, pts: torch.Tensor, eps: float = 1e-12) -> torch.Te
     return torch.stack([row(0) / w, row(1) / w], dim=-1)
 
 
-def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) @ (..., 3, 3) as elementwise products and a sum: the
-    same bits on every call (a CPU BLAS may round a batched product
-    differently from call to call, by the operands' alignment, and that
-    moves RANSAC's near-tied inlier counts)."""
-    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
-
-
 def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int, seed: int = 0) -> torch.Tensor:
     """(K, 4) int64 indices of valid lanes, drawn with replacement, on
-    ``valid``'s device.
-
-    The uniforms come from a CPU ``torch.Generator`` seeded with ``seed``;
-    each picks the lane of the ``floor(u * n_valid)``-th valid entry by a
-    search in the running count of valid lanes, on the device.  The same
-    seed and mask give the same indices on the CPU and on the card, and
-    nothing is read back to the host.  With no valid lane every index is
-    the last lane (every hypothesis then scores zero inliers).
-    """
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
-    u = torch.rand((num_hypotheses, 4), generator=gen, dtype=torch.float64)
-    if valid.device.type == "cuda":  # a pinned copy does not wait for the card
-        u = u.pin_memory().to(valid.device, non_blocking=True)
-    cdf = torch.cumsum(valid.to(torch.int64), 0)
-    target = torch.floor(u * cdf[-1].to(torch.float64)).to(torch.int64)
-    idx = torch.searchsorted(cdf, target, right=True)
-    return idx.clamp(max=valid.shape[0] - 1)
+    ``valid``'s device: ``geometry.sample_choice`` with 4 lanes a sample."""
+    return geometry.sample_choice(valid, num_hypotheses, 4, seed)
 
 
 def _normalize(p: torch.Tensor, vf: torch.Tensor, nvalid: torch.Tensor):
@@ -167,7 +145,7 @@ def ransac_with_samples(pts1, pts2, valid, idx, inlier_threshold: float = 3.0):
 
     # Inlier counting in pixel space: H_px = T2^-1 H T1.
     t2inv = torch.linalg.inv_ex(t2)[0]
-    h_px = _matmul(_matmul(t2inv, h), t1)
+    h_px = matmul3(matmul3(t2inv, h), t1)
     thr2 = inlier_threshold * inlier_threshold
     proj = _apply_h(h_px, pts1[None])  # (K, N, 2)
     err2 = ((proj - pts2[None]) ** 2).sum(-1)
@@ -184,7 +162,7 @@ def ransac_with_samples(pts1, pts2, valid, idx, inlier_threshold: float = 3.0):
     # ``jnp.repeat``, kept for parity (ROADMAP.md, queue 3).
     w = inlier_mask.to(dtype)
     a_all = _dlt_matrix(p1n, p2n) * w.repeat_interleave(2)[:, None]
-    h_ref_px = _matmul(_matmul(t2inv, _solve_h(a_all)), t1)
+    h_ref_px = matmul3(matmul3(t2inv, _solve_h(a_all)), t1)
 
     # Fall back to the best sample hypothesis if the refit is worse.
     proj_r = _apply_h(h_ref_px[None], pts1[None])[0]

@@ -8,8 +8,11 @@ sift_tpu``, and no silent CPU run without a card.
 
 from __future__ import annotations
 
+import ctypes
+import fcntl
 import functools
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -34,10 +37,48 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 
 
+def _jax_native_built() -> bool:
+    """The JAX package's library, ``sift_tpu/_native.so``, complete on disk.
+
+    Its loader runs ``make -C csrc`` when the file is missing and keeps the
+    outcome for the life of the process; the Makefile links straight into
+    the target, so a test worker that looks while another worker's linker
+    is writing it finds a file that exists but does not load ("file too
+    short", "invalid ELF header") and takes the library as absent for the
+    rest of its run.  Here one worker at a time, under a lock, keeps a
+    library that loads or builds one beside it and renames it into place.
+    """
+    so = ROOT / "sift_tpu" / "_native.so"
+    build = ROOT / "sift_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    with open(build / "jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            try:
+                ctypes.CDLL(str(so))
+                return True
+            except OSError:
+                pass
+        tmp = build / f"jax_native.{os.getpid()}.so"
+        try:
+            subprocess.run(["make", "-C", str(ROOT / "csrc"), f"TARGET={tmp}"], check=True,
+                           capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError):
+            tmp.unlink(missing_ok=True)
+            return False
+        os.replace(tmp, so)
+        return True
+
+
 def _native(monkeypatch, on: bool):
     """Both packages on their native decoder / rasterizer, or both on the
-    Pillow / numpy paths."""
+    Pillow / numpy paths.  The JAX package's loader is asked afresh, after
+    ``_jax_native_built``, so that a failed first attempt of this worker
+    (see there) does not decide."""
     if on:
+        if _jax_native_built():
+            monkeypatch.setattr(jax_native, "_TRIED", False)
+            monkeypatch.setattr(jax_native, "_LIB", None)
         if not (native.available() and jax_native.available()):
             pytest.skip("the native library does not build here (g++, libjpeg, libpng)")
     else:

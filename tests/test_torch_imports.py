@@ -91,3 +91,37 @@ def test_stitching_entry_points_default_to_cuda():
         stitch.stitch_scene([img, img], chain_graph(2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         blend.multiband_blend([img, img], [np.eye(3), np.eye(3)])
+
+
+@pytest.mark.parametrize("module", ["geometry", "ba", "sfm"])
+def test_sfm_slice_modules_stand_alone(module):
+    """The SfM slice's modules exist in the port and import neither JAX nor
+    the JAX package, directly or through what they import."""
+    path = PKG / "models" / f"{module}.py"
+    assert path.is_file()
+    code = (f"import sys, sift_tpu_torch.models.{module}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sift_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_sfm_entry_points_default_to_cuda():
+    """``run_sfm`` and ``run_sfm_from_matches`` default to the card and,
+    without one, raise instead of running on the CPU."""
+    import inspect
+
+    from sift_tpu_torch.models import sfm
+
+    for fn in (sfm.run_sfm, sfm.run_sfm_from_matches):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    frames = [np.zeros((48, 64, 3), np.float32)] * 3
+    k = np.array([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sfm.run_sfm(frames, k)
+    uv = np.zeros((20, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sfm.run_sfm_from_matches([uv, uv], {(0, 1): np.stack([np.arange(20)] * 2, 1)}, k)
