@@ -60,7 +60,19 @@ frames, ATE and the loop-closure repair, the sweep over 21 RANSAC streams
 against the JAX package's own spread, both on the bundle adjustment's
 residual; and the JAX test's 6-frame sequence twice on the card
 (bit-equal) and once on the CPU (the same frames and initial pair,
-centres within 1% of the span).  Every launch counter is set to 0 just
+centres within 1% of the span).  Then the multi-device layer (phase
+``parallel``, ``sift_tpu_torch/parallel``): one pool of four spawned ranks
+that share the card through gloo runs, each call counted per rank
+(``multihost.run_steps``), ``batched_detect`` of the batch over a (data
+2, kp 2) mesh (bit-equal to the main path's batch: D 1, F 8 a rank),
+``sharded_match`` of its pairs at kp 2 and 4 (bit-equal to
+``match_descriptors``, the 165-match set; B 1 a call), the row-sharded
+``spatial_detect_and_describe`` of CAVE 00 (against ``detect_stages``
+under the JAX test's tolerances; C 8, D 1, H 24 a rank), the point-sharded
+``sharded_ba_solve`` of a 97-camera, 20,000-point problem (against
+``ba_solve``), and the elastic recovery on a mesh of ranks {0, 1}; then
+NCCL at world size 1 in this process; D, F, B, C and H held against their
+plain versions at these shapes.  Every launch counter is set to 0 just
 before a path and read just after.  Then it times the sweeps, each
 stage, the staged path and the other routes; then the radius classes of
 orientation and descriptors (phase ``radius_classes``) against the
@@ -154,6 +166,15 @@ SFM_MAX_BA_RMS_PX = 1.0
 # (tests/test_sfm_images.py:61-71): camera centres within this fraction of
 # the span after similarity alignment.
 SFM_CARD_CPU_TOL = 0.01
+# The parallel phase: ranks sharing the card through gloo, and its BA
+# problem (``chain_ba_scene``): as many cameras as bigloop-97, 20,000
+# points, the SfM phase's intrinsics, tests/test_ba_dist.py's 12 iterations.
+PAR_RANKS = 4
+PAR_BA_CAMS = 97
+PAR_BA_POINTS = 20000
+PAR_BA_FXY = (300.0, 300.0)
+PAR_BA_CXY = (160.0, 120.0)
+PAR_BA_ITERS = 12
 TIMED_SWEEPS = 5
 KERNEL_REPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
@@ -684,7 +705,364 @@ def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
     return total
 
 
+def rodrigues_np(w):
+    """Rotation matrix of an axis-angle vector (numpy, float64)."""
+    import numpy as np
+
+    th = float(np.linalg.norm(w))
+    if th < 1e-12:
+        return np.eye(3)
+    k = np.asarray(w) / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+
+def chain_ba_scene(n_cams=PAR_BA_CAMS, n_pts=PAR_BA_POINTS, seed=0):
+    """The parallel phase's BA problem: cameras 0.1 apart along x with a slow
+    yaw, each point seen by a run of 3-8 consecutive cameras at depth 4-8;
+    0.3 px noise, cameras 2.. perturbed by 0.03 and points by 0.05
+    (tests/test_ba_dist.py:18-40's recipe), cameras 0 and 1 fixed.
+    Returns (cams, points, obs_cam, obs_pt, obs_uv, fixed) as numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fxy, cxy = np.asarray(PAR_BA_FXY), np.asarray(PAR_BA_CXY)
+    cams = np.zeros((n_cams, 6))
+    rots = []
+    for i in range(n_cams):
+        cams[i, :3] = (0.0, 0.002 * i, 0.0)
+        r = rodrigues_np(cams[i, :3])
+        rots.append(r)
+        cams[i, 3:] = -r @ np.array([0.1 * i, 0.0, 0.0])
+    run = rng.integers(3, 9, n_pts)
+    first = (rng.random(n_pts) * (n_cams - run + 1)).astype(np.int64)
+    pts = np.stack([0.1 * (first + (run - 1) / 2) + rng.uniform(-0.3, 0.3, n_pts),
+                    rng.uniform(-1, 1, n_pts), rng.uniform(4, 8, n_pts)], 1)
+    obs_cam = np.concatenate([first + k for k in range(8)])
+    obs_pt = np.tile(np.arange(n_pts), 8)
+    keep = np.concatenate([k < run for k in range(8)])
+    obs_cam, obs_pt = obs_cam[keep], obs_pt[keep]
+    pc = np.einsum("oij,oj->oi", np.stack(rots)[obs_cam], pts[obs_pt]) + cams[obs_cam, 3:]
+    obs_uv = pc[:, :2] / pc[:, 2:] * fxy + cxy + rng.normal(0, 0.3, (len(obs_cam), 2))
+    cams_noisy = cams.copy()
+    cams_noisy[2:] += rng.normal(0, 0.03, cams_noisy[2:].shape)
+    pts_noisy = pts + rng.normal(0, 0.05, pts.shape)
+    fixed = np.zeros(n_cams, bool)
+    fixed[:2] = True
+    return (cams_noisy, pts_noisy, obs_cam.astype(np.int32), obs_pt.astype(np.int32), obs_uv,
+            fixed)
+
+
+def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script):
+    """Phase ``parallel``: the multi-device layer (``sift_tpu_torch/parallel``)
+    on PAR_RANKS ranks that share this card through gloo, one spawned pool
+    for every leg, each rank's calls counted and timed by
+    ``multihost.run_steps``:
+
+    1. ``batched_detect`` of the BATCH frames over a (data 2, kp 2) mesh, each
+       rank's share bit-equal to ``ref_kp`` (the main path's batch); then
+       ``sharded_match`` of all pairs at kp = 2 on that mesh and at kp = 4 on
+       a (1, 4) mesh, bit-equal to ``match_descriptors``, the 165-match set;
+    2. ``spatial_detect_and_describe`` of CAVE 00 over a data axis of 4,
+       against ``detect_stages`` under tests/test_spatial.py's tolerances;
+    3. ``sharded_ba_solve`` of ``chain_ba_scene`` at kp = 4 against
+       ``ba_solve`` under tests/test_ba_dist.py's gates;
+    4. elastic recovery: the pair-0 B side saved, reloaded and matched on the
+       mesh of ranks {0, 1}, and one BA step there, against kp = 4.
+
+    Then NCCL at world size 1 in this process.  B, C, D, F (and H, which the
+    staged functions build rows with) are held against their plain versions
+    at the legs' shapes.  Returns rank 0's launches over the pool."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sift_tpu_torch import match_descriptors
+    from sift_tpu_torch.config import gaussian_half_kernel
+    from sift_tpu_torch.models import sift as S
+    from sift_tpu_torch.models.ba import ba_problem_from_numpy, ba_solve, build_obs_by_point
+    from sift_tpu_torch.models.pyramid import blur_half_kernels, compute_initial_image
+    from sift_tpu_torch.ops.blur import separable_blur
+    from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
+    from sift_tpu_torch.ops.color import to_grayscale
+    from sift_tpu_torch.ops.octave_blur import octave_blur, octave_blur_plain
+    from sift_tpu_torch.ops.octave_front import octave_front_twin, octave_front_twin_plain
+    from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
+    from sift_tpu_torch.ops.top2 import top2, top2_plain
+    from sift_tpu_torch.ops.twin_rows import twin_rows_2d, twin_rows_2d_plain
+    from sift_tpu_torch.parallel import multihost as MH
+    from sift_tpu_torch.parallel.ba_dist import (
+        shard_ba_problem,
+        sharded_ba_solve,
+        sharded_ba_step,
+        sharded_cost,
+    )
+    from sift_tpu_torch.parallel.dist import batched_detect, sharded_match
+    from sift_tpu_torch.parallel.mesh import make_mesh
+    from sift_tpu_torch.parallel.spatial import (
+        octave_dims,
+        spatial_detect_and_describe,
+        spatial_halo,
+        window_of,
+    )
+    from sift_tpu_torch.utils.checkpoint import load_keypoints, save_keypoints
+    from sift_tpu_torch.utils.keypoints import FIELDS
+
+    t_phase = time.perf_counter()
+    MeshSpec, Step, Earlier = MH.MeshSpec, MH.Step, MH.Earlier
+    pairs = BATCH // 2
+    d1, v1 = ref_kp.desc[0::2].cpu(), ref_kp.valid[0::2].cpu()
+    d2, v2 = ref_kp.desc[1::2].cpu(), ref_kp.valid[1::2].cpu()
+    cave00 = frames[0]
+    ba = chain_ba_scene()
+    n_obs = len(ba[2])
+    fxy, cxy = np.asarray(PAR_BA_FXY), np.asarray(PAR_BA_CXY)
+    sp4, _ = shard_ba_problem(*ba[:5], 4, fxy, cxy, ba[5], device="cpu")
+    sp2, _ = shard_ba_problem(*ba[:5], 2, fxy, cxy, ba[5], device="cpu")
+    survivors = MeshSpec(1, 2, ranks=(0, 1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        state = f"{tmp}/pair0_b.npz"
+        save_keypoints(state, ref_kp.map(lambda a: a[1].cpu()))
+        legs = {"detect_match": [0, 1, 2], "spatial": [5], "ba": [6, 7], "elastic": [3, 4, 8, 9]}
+        steps = [
+            Step(batched_detect, (frames, cfg, octaves, MeshSpec(2, 2))),            # 0
+            Step(sharded_match, (d1, v1, d2, v2, MeshSpec(2, 2), cfg.ratio_threshold)),  # 1
+            Step(sharded_match, (d1, v1, d2, v2, MeshSpec(1, 4), cfg.ratio_threshold)),  # 2
+            Step(load_keypoints, (state,), dict(device="cuda")),                      # 3
+            Step(sharded_match, (d1[0], v1[0], Earlier(3, "desc"), Earlier(3, "valid"),
+                                 survivors, cfg.ratio_threshold)),                   # 4
+            Step(spatial_detect_and_describe, (cave00, scfg, MeshSpec(PAR_RANKS, 1))),  # 5
+            Step(sharded_cost, (sp4, MeshSpec(1, 4))),                                # 6
+            Step(sharded_ba_solve, (sp4, MeshSpec(1, 4)), dict(iters=PAR_BA_ITERS)),  # 7
+            Step(sharded_ba_step, (sp4, 1e-3, MeshSpec(1, 4))),                       # 8
+            Step(sharded_ba_step, (sp2, 1e-3, survivors)),                            # 9
+        ]
+        t0 = time.perf_counter()
+        res = MH.run_steps(steps, PAR_RANKS, device="cuda", backend="gloo")
+        pool_s = time.perf_counter() - t0
+
+    def launched(st, **want_n):
+        """Exactly the named launches (the rest 0) in step ``st`` on every rank
+        that ran it."""
+        for r, rr in enumerate(res):
+            if rr[st] is None:
+                continue
+            got = {k: v for k, v in rr[st].launches.items() if v}
+            need(got == want_n, f"parallel step {st} rank {r}: launches {got}, want {want_n}")
+
+    # -- leg 1: data-parallel detection and kp-sharded matching -------------
+    for r, rr in enumerate(res):
+        for f in FIELDS:
+            same(getattr(rr[0].out, f), getattr(ref_kp, f).cpu(), f"parallel rank {r} batched {f}")
+    nkp = ref_kp.valid.sum(1).tolist()
+    need(nkp[:2] == list(WANT_KP), f"parallel: keypoints {nkp[:2]}")
+    ridx, racc, rbest, rsec = match_descriptors(d1, v1, d2, v2, cfg.ratio_threshold, device=dev)
+    ridx, racc, rbest, rsec = (t.cpu() for t in (ridx, racc, rbest, rsec))
+    for st, what in ((1, "kp 2 of (2, 2)"), (2, "kp 4 of (1, 4)")):
+        for r, rr in enumerate(res):
+            idx, acc, best, sec = rr[st].out
+            need(torch.equal(acc, racc) and torch.equal(best, rbest) and torch.equal(sec, rsec)
+                 and torch.equal(idx[acc], ridx[racc]),
+                 f"parallel sharded_match {what} rank {r} differs from match_descriptors")
+            for p in range(pairs):
+                got = {(i, int(idx[p, i])) for i in np.nonzero(acc[p].numpy())[0]}
+                need(got == want, f"parallel {what} rank {r} pair {p}: {len(got ^ want)} differ")
+    launched(0, blur_pass=1, octave_front_twin=octaves)
+    launched(1, top2=1)
+    launched(2, top2=1)
+
+    # -- leg 2: row-sharded detection of one frame --------------------------
+    ref_sp = S.detect_stages(cave00, scfg, octaves, device=dev)["final"]
+    sp_out = res[0][5].out
+    for r, rr in enumerate(res[1:], 1):
+        for f in FIELDS:
+            same(getattr(rr[5].out, f), getattr(sp_out, f), f"parallel spatial rank {r} {f}")
+
+    def cols(k):
+        v = k.valid.cpu().numpy()
+        return (np.stack([getattr(k, f).cpu().numpy()[v].astype(np.float64)
+                          for f in ("x", "y", "size", "pori")], 1),
+                k.octave.cpu().numpy()[v], k.desc.cpu().numpy()[v])
+
+    a, oct_a, desc_a = cols(sp_out)
+    b, oct_b, desc_b = cols(ref_sp)
+    need(len(a) == len(b), f"parallel spatial: {len(a)} keypoints, staged {len(b)}")
+    tol = np.array([2e-3, 2e-3, 2e-3, 1e-3])
+    close = (np.abs(a[None] - b[:, None]) <= tol).all(-1) & (oct_a[None] == oct_b[:, None])
+    assign = close.argmax(1)
+    need(bool(close.any(1).all()) and len(set(assign.tolist())) == len(b),
+         "parallel spatial: no 1:1 assignment within the tolerances")
+    dd = np.abs(desc_a[assign].astype(np.int32) - desc_b.astype(np.int32))
+    off2, off0 = float((dd > 2).mean()), float((dd != 0).mean())
+    need(off2 < 0.001 and off0 < 0.05, f"parallel spatial: descriptor bytes off {off2}, {off0}")
+    max_dev = np.abs(a[assign] - b).max(0).tolist()
+    launched(5, octave_blur=octaves, blur_pass=1, twin_rows_2d=3 * octaves)
+
+    # -- leg 3: point-sharded bundle adjustment ------------------------------
+    def problem_f32():
+        cams, pts, oc, op, uv, fixed = ba
+        return ba_problem_from_numpy(dict(
+            cams=cams.astype(np.float32), points=pts.astype(np.float32), obs_cam=oc, obs_pt=op,
+            obs_uv=uv.astype(np.float32), obs_mask=np.ones(n_obs, bool),
+            obs_by_point=build_obs_by_point(op, len(pts)), fxy=fxy.astype(np.float32),
+            cxy=cxy.astype(np.float32), fixed_cams=fixed), dev)
+
+    t0 = time.perf_counter()
+    cams_ref, _, info_ref = ba_solve(problem_f32(), iters=PAR_BA_ITERS)
+    torch.cuda.synchronize()
+    ba_single_s = time.perf_counter() - t0
+    ref_trace = info_ref["cost_trace"]
+    cost0 = float(res[0][6].out)
+    sp_solved, info = res[0][7].out
+    trace = info["cost_trace"]
+    need(abs(cost0 - ref_trace[0]) < 1e-2 * cost0, f"parallel BA: cost0 {cost0} vs {ref_trace[0]}")
+    need(trace[-1] < 0.05 * ref_trace[0], f"parallel BA: final {trace[-1]} of {ref_trace[0]}")
+    ba_rel = abs(trace[-1] - ref_trace[-1]) / max(ref_trace[-1], 1e-6)
+    need(ba_rel < 0.05, f"parallel BA: final {trace[-1]} vs single-process {ref_trace[-1]}")
+    ba_cam_err = float((sp_solved["cams"] - cams_ref.cpu()).abs().max())
+    need(ba_cam_err <= 5e-3, f"parallel BA: cameras off by {ba_cam_err}")
+    for r, rr in enumerate(res[1:], 1):
+        same(rr[7].out[0]["cams"], sp_solved["cams"], f"parallel BA rank {r} cameras")
+
+    # -- elastic recovery -----------------------------------------------------
+    for r, rr in enumerate(res):
+        need((rr[4] is None) == (r not in survivors.ranks), f"parallel: rank {r} survivors step")
+    for r in survivors.ranks:
+        for name, x, y in zip(("idx", "accept", "best", "second"), res[r][4].out,
+                              (t[0] for t in res[0][2].out)):
+            same(x, y, f"parallel elastic rank {r} {name} vs kp 4")
+    launched(4, top2=1)
+    cams4, _, c4 = res[0][8].out
+    cams2, _, c2 = res[0][9].out
+    el_cost_rel = abs(float(c4) - float(c2)) / max(float(c4), 1.0)
+    el_cam_err = float((cams4 - cams2).abs().max())
+    need(el_cost_rel < 1e-3 and el_cam_err <= 5e-3,
+         f"parallel elastic BA: cost {float(c4)} vs {float(c2)}, cameras {el_cam_err}")
+
+    # -- the kernels against their plain versions at the legs' shapes ---------
+    hks = blur_half_kernels(cfg)
+    share = S.as_batch(frames[: BATCH // 2], cfg, dev)
+    gray = upsample_bilinear(to_grayscale(share).to(cfg.dtype), 2, 2).contiguous()
+    pre = gaussian_half_kernel(math.sqrt(cfg.init_sigma * cfg.init_sigma - 1))
+    errs = dict(D=same(separable_blur_kernel(gray, pre), separable_blur(gray, pre),
+                       "parallel kernel D batch 8"))
+    seed = compute_initial_image(share, cfg).contiguous()
+    plan = S.front_twin_plan(cfg, octaves, *seed.shape[1:])
+    need(all(o[3] for o in plan.octaves), f"parallel: front-twin plan {plan.octaves}")
+    bufs = [(torch.zeros((len(share), plan.g_total, 2 * plan.blk), device=dev),
+             torch.zeros((len(share), plan.pk_total, 128), device=dev)) for _ in range(2)]
+    thr = cfg.extremum_threshold()
+    sd = [seed, seed]
+    errs["F"] = 0.0
+    for (h, w, st_, fits, nbt, gbase), pkbase in zip(plan.octaves, plan.pk_bases):
+        outs = [fn(sd[i], hks, thr, bufs[i][0], gbase, st_, plan.blk, plan.g_l0, plan.g_nl,
+                   bufs[i][1], pkbase) for i, fn in enumerate((octave_front_twin,
+                                                                octave_front_twin_plain))]
+        for name, x, y in zip(("mask", "counts", "down"), *outs):
+            errs["F"] = max(errs["F"], same(x, y, f"parallel kernel F batch 8 {name}"))
+        sd = [downsample_nearest_x2(o[2]).contiguous() for o in outs]
+    for i in range(2):
+        errs["F"] = max(errs["F"], same(bufs[0][i], bufs[1][i], "parallel kernel F buffers"))
+    del bufs
+    errs["B"] = 0.0
+    b_shapes = []
+    for nkp_ in (2, 4):
+        w = d2.shape[1] // nkp_
+        for p_ in (pairs, 1):
+            for k in range(nkp_):
+                x1 = d1[:p_].to(dev).contiguous()
+                x2 = d2[:p_, k * w:(k + 1) * w].to(dev).contiguous()
+                xv = v2[:p_, k * w:(k + 1) * w].to(dev).contiguous()
+                for name, x, y in zip(("best", "second", "idx"), top2(x1, x2, xv),
+                                      top2_plain(x1, x2, xv)):
+                    errs["B"] = max(errs["B"], same(x, y, f"parallel kernel B {name} "
+                                                          f"({p_}, {x1.shape[1]}, {w})"))
+            b_shapes.append([p_, int(d1.shape[1]), w])
+    s0 = compute_initial_image(S.as_batch(cave00[None], scfg, dev), scfg)[0]
+    halo = spatial_halo(scfg)
+    h0, _ = octave_dims(*s0.shape, 1)[0]
+    errs["C"] = errs["H"] = 0.0
+    win_shapes = []
+    for shard in (0, 1):
+        _, _, wstart, win = window_of(h0, shard, PAR_RANKS, halo)
+        window = s0[None, wstart: wstart + win].contiguous()
+        g_c, d_c = octave_blur(window, hks)
+        g_p, d_p = octave_blur_plain(window, hks)
+        errs["C"] = max(errs["C"], same(g_c, g_p, f"parallel kernel C gauss rank {shard} window"),
+                        same(d_c, d_p, f"parallel kernel C dog rank {shard} window"))
+        for vol in (g_c[0], d_c[0]):
+            m2 = vol.reshape(-1, vol.shape[-1]).contiguous()
+            errs["H"] = max(errs["H"], same(twin_rows_2d(m2, 128), twin_rows_2d_plain(m2, 128),
+                                            f"parallel kernel H rank {shard} window"))
+        win_shapes.append([1, win, int(s0.shape[1])])
+
+    # -- NCCL at world size 1, in this process --------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        MH.initialize(f"file://{tmp}/rendezvous", num_processes=1, process_id=0, backend="nccl")
+        try:
+            need(dist.get_backend() == "nccl" and MH.fleet_barrier() == 1, "NCCL world 1")
+            mesh = make_mesh(1, 1)
+            got = sharded_match(d1[0], v1[0], d2[0], v2[0], mesh, cfg.ratio_threshold)
+            for name, x, y in zip(("idx", "accept", "best", "second"), got,
+                                  (t[0] for t in (ridx, racc, rbest, rsec))):
+                same(x.cpu(), y, f"NCCL world 1 sharded_match {name}")
+            sp1, _ = shard_ba_problem(*ba[:5], 1, fxy, cxy, ba[5], device=dev)
+            n_cost0 = float(sharded_cost(sp1, mesh))
+            cams1, pts1, _ = sharded_ba_step(sp1, 1e-3, mesh)
+            n_cost1 = float(sharded_cost(dict(sp1, cams=cams1, points=pts1), mesh))
+            need(n_cost1 < n_cost0, f"NCCL world 1: BA step {n_cost0} -> {n_cost1}")
+        finally:
+            dist.destroy_process_group()
+
+    def sweep():
+        out = S.detect_and_describe_batch(S.as_batch(frames, cfg, dev), cfg, device=dev)
+        return match_descriptors(out.desc[0::2], out.valid[0::2], out.desc[1::2],
+                                 out.valid[1::2], cfg.ratio_threshold, device=dev)
+
+    sweep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_SWEEPS):
+        sweep()
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / TIMED_SWEEPS
+
+    def leg_s(rr, name):
+        return sum(rr[i].seconds for i in legs[name] if rr[i] is not None)
+
+    total = {}
+    for st in res[0]:
+        for k, v in st.launches.items():
+            total[k] = total.get(k, 0) + v
+    emit(dict(
+        phase="parallel", nvidia_smi=smi, ranks=PAR_RANKS, backend="gloo on one card",
+        pool_s=pool_s, leg_s_per_rank={k: [leg_s(rr, k) for rr in res] for k in legs},
+        step_s_per_rank=[[None if x is None else x.seconds for x in rr] for rr in res],
+        launches_per_rank=[[None if x is None else {k: v for k, v in x.launches.items() if v}
+                            for x in rr] for rr in res],
+        peak_mem_gib_per_rank=[max(x.peak_bytes for x in rr if x is not None) / 2**30
+                               for rr in res],
+        detect_match=dict(batch=BATCH, mesh=[2, 2], keypoints=nkp[:2], matches=WANT_MATCHES,
+                          bit_equal=True, kp_widths=[2, 4]),
+        spatial=dict(frame_hw=list(cave00.shape[:2]), octaves=octaves, halo=halo,
+                     keypoints=len(a), staged_keypoints=len(b), max_abs_dev_xy_size_pori=max_dev,
+                     desc_bytes_off_gt2=off2, desc_bytes_off=off0, window_shapes=win_shapes),
+        ba=dict(cams=PAR_BA_CAMS, points=PAR_BA_POINTS, observations=n_obs, kp=4,
+                iters=PAR_BA_ITERS, cost_trace=trace, single_process_cost_trace=ref_trace,
+                final_rel_vs_single=ba_rel, cams_max_abs_diff=ba_cam_err,
+                single_process_s=ba_single_s),
+        elastic=dict(survivors=list(survivors.ranks), match_bit_equal=True,
+                     ba_step_cost_rel=el_cost_rel, ba_step_cams_max_abs_diff=el_cam_err),
+        nccl_world1=dict(match_bit_equal=True, ba_cost=[n_cost0, n_cost1]),
+        kernels_vs_plain=dict(max_abs_err=errs, b_shapes=b_shapes, c_h_window_shapes=win_shapes,
+                              d_f_batch=BATCH // 2),
+        single_process_sweep_ms=single_ms, phase_s=time.perf_counter() - t_phase,
+        script_s=time.perf_counter() - t_script))
+    return total
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import numpy as np
     import torch
     from PIL import Image as PILImage
@@ -744,13 +1122,11 @@ def main() -> int:
     from sift_tpu_torch.utils.stitch_graph import StitchGraph, chain_graph
     from sift_tpu_torch.utils.io import save_image
     from sift_tpu_torch.utils.keypoints import FIELDS, compact
+    from sift_tpu_torch.parallel.multihost import kernel_wrappers
 
     dev = torch.device("cuda")
     smi = smi_line()
-    counted = dict(octave_front=octave_front, top2=top2, octave_blur=octave_blur,
-                   blur_pass=separable_blur_kernel, twin_rows=twin_rows_strips,
-                   octave_front_twin=octave_front_twin, cube_pack=cube_pack_rows,
-                   twin_rows_2d=twin_rows_2d)
+    counted = kernel_wrappers()
 
     def zero_counts():
         for fn in counted.values():
@@ -1080,6 +1456,7 @@ def main() -> int:
     racc = ratio_accept(rb, rs, torch.ones(od1.shape[:2], dtype=torch.bool))[0]
     want = {(i, int(ri[0, i])) for i in np.nonzero(racc.numpy())[0]}
     need(len(want) == WANT_MATCHES, f"oracle match set has {len(want)}")
+    oracle_set = want  # for the parallel phase (``want`` is a loop name later)
 
     def check_matches(desc1, valid1, desc2, valid2, what):
         """Every pair's ratio-test matches (kernel B) are the oracle's set."""
@@ -1125,6 +1502,7 @@ def main() -> int:
     need(S.route_of(cfg, dev) == "front_twin", "the entry point does not take the front-twin route")
     zero_counts()
     kp, counts = S.detect_and_describe_batch(imgs, cfg, return_counts=True, device=dev)
+    main_kp = kp  # the parallel phase's reference (``kp`` is a loop name later)
     match_descriptors(kp.desc[0::2], kp.valid[0::2], kp.desc[1::2], kp.valid[1::2],
                       cfg.ratio_threshold, device=dev)
     launches = {"main": read_counts()}
@@ -1724,6 +2102,12 @@ def main() -> int:
     # counted: D and F for every frame, B for every matched pair -----------------
     launches["sfm"] = sfm_phase(dev, smi, zero_counts, read_counts,
                                 lambda img: S.octaves_for(S.as_batch(img[None], cfg, dev), cfg))
+
+    # -- phase 8g: the multi-device layer on ranks that share the card, counted
+    # per rank: D 1 and F 8 (detection), B 1 a match call, C 8, D 1 and H 24
+    # (spatial); then NCCL at world size 1 ------------------------------------
+    launches["parallel"] = parallel_phase(dev, smi, cfg, scfg, frames, octaves, main_kp,
+                                          oracle_set, t_script)
 
     # -- phase 9: timing of the sweeps, the stages of the front-twin and the
     # front route, the other routes and the kernels ----------------------------

@@ -193,11 +193,13 @@ def _cam_onehot(pr: BAProblem, dtype) -> torch.Tensor:
     return (pr.obs_cam[None, :] == torch.arange(c, device=pr.obs_cam.device)[:, None]).to(dtype)
 
 
-def _schur_reduce(pr: BAProblem, jc, jp, r, lam):
-    """Assemble the damped, Schur-reduced camera system.
+def _schur_parts(pr: BAProblem, jc, jp, r, lam):
+    """The observation sums of the damped, Schur-reduced camera system.
 
-    Returns (S (C,6,C,6), rhs (C,6), V_inv (P,3,3), W tables, g_p): the
-    pieces needed for back-substitution.
+    Returns (U (C,6,6), g_c (C,6), sum_p Y W^T (C,6,C,6), sum_p Y g_p
+    (C,6)) -- the sums over points, which a point-sharded caller adds across
+    shards (``parallel/ba_dist.py``) -- and the point-local V_inv (P,3,3),
+    W tables, cameras of the table and g_p for back-substitution.
     """
     c = pr.cams.shape[0]
     dtype = jc.dtype
@@ -214,10 +216,8 @@ def _schur_reduce(pr: BAProblem, jc, jp, r, lam):
     v = _by_point(jtj_p, tbl).sum(1)   # (P, 3, 3)
     g_p = -_by_point(g_p_o, tbl).sum(1)  # (P, 3)
 
-    # LM damping (additive, scaled by the diagonal).
-    eye6 = torch.eye(6, dtype=dtype, device=jc.device)
+    # LM damping of the point blocks (additive, scaled by the diagonal).
     eye3 = torch.eye(3, dtype=dtype, device=jc.device)
-    u_l = u + lam * (u * eye6) + 1e-9 * eye6
     v_l = v + lam * (v * eye3) + 1e-9 * eye3
     v_inv = torch.linalg.inv(v_l)
 
@@ -226,19 +226,40 @@ def _schur_reduce(pr: BAProblem, jc, jp, r, lam):
     cam_of = pr.obs_cam[tbl.clamp(min=0)]  # (P, F)
     y = torch.einsum("pfij,pjk->pfik", w, v_inv)  # (P, F, 6, 3)
 
-    # S = blockdiag(U_l) - sum_p sum_{a,b} Y_pa W_pb^T at (cam_a, cam_b):
-    # each point's blocks placed at their cameras ((P, C, 6, 3); a pad's
-    # blocks are zero), then one product over points and their 3 columns.
+    # sum_p sum_{a,b} Y_pa W_pb^T at (cam_a, cam_b): each point's blocks
+    # placed at their cameras ((P, C, 6, 3); a pad's blocks are zero), then
+    # one product over points and their 3 columns.
     member = (cam_of[:, :, None] == torch.arange(c, device=cam_of.device)).to(dtype)  # (P, F, C)
     y_c = torch.einsum("pfc,pfij->cipj", member, y).reshape(c * 6, -1)
     w_c = torch.einsum("pfc,pfij->cipj", member, w).reshape(c * 6, -1)
-    s = -(y_c @ w_c.T).reshape(c, 6, c, 6)
+    yw = (y_c @ w_c.T).reshape(c, 6, c, 6)
+
+    # sum_p Y_pa g_p at cam_a
+    rhs_contrib = torch.einsum("pfij,pj->pfi", y, g_p)  # (P, F, 6)
+    yg = torch.einsum("pfc,pfi->ci", member, rhs_contrib)
+    return u, g_c, yw, yg, v_inv, w, cam_of, g_p
+
+
+def _schur_combine(u, g_c, yw, yg, lam):
+    """S = blockdiag(U_l) - sum_p Y W^T and rhs = g_c - sum_p Y g_p, with
+    the camera blocks damped as the point blocks are."""
+    c = u.shape[0]
+    eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
+    u_l = u + lam * (u * eye6) + 1e-9 * eye6
+    s = -yw
     diag = torch.arange(c, device=s.device)
     s[diag, :, diag, :] += u_l
+    return s, g_c - yg
 
-    # rhs_c = g_c - sum_p Y_pa g_p
-    rhs_contrib = torch.einsum("pfij,pj->pfi", y, g_p)  # (P, F, 6)
-    rhs = g_c - torch.einsum("pfc,pfi->ci", member, rhs_contrib)
+
+def _schur_reduce(pr: BAProblem, jc, jp, r, lam):
+    """Assemble the damped, Schur-reduced camera system.
+
+    Returns (S (C,6,C,6), rhs (C,6), V_inv (P,3,3), W tables, g_p): the
+    pieces needed for back-substitution.
+    """
+    u, g_c, yw, yg, v_inv, w, cam_of, g_p = _schur_parts(pr, jc, jp, r, lam)
+    s, rhs = _schur_combine(u, g_c, yw, yg, lam)
     return s, rhs, v_inv, w, cam_of, g_p
 
 

@@ -54,6 +54,16 @@ def blur_half_kernels(cfg: SiftConfig) -> list[list[float]]:
     return [gaussian_half_kernel(s) for s in cfg.gaussian_kernels()[1:]]
 
 
+def octave_stacks(seed: torch.Tensor, cfg: SiftConfig, hks):
+    """One octave from its seed (B, H, W) and the blur chain ``hks``
+    (``blur_half_kernels``): (gauss (B, S, H, W), DoG (B, S-1, H, W)),
+    through kernel C when ``cfg.use_octave_kernel`` resolves on, else
+    through the ``_blur`` chain."""
+    if kernel_on(cfg.use_octave_kernel, seed.dtype, seed.device):
+        return octave_blur(seed, hks)
+    return octave_blur_plain(seed, hks, _blur)
+
+
 def build_pyramids(initial: torch.Tensor, cfg: SiftConfig, octaves: int):
     """initial (B, H, W) -> (gaussians, dogs): per octave, gauss (B, S, H_o,
     W_o) with the seed as layer 0 and DoG (B, S-1, H_o, W_o)."""
@@ -61,10 +71,7 @@ def build_pyramids(initial: torch.Tensor, cfg: SiftConfig, octaves: int):
     gaussians, dogs = [], []
     img = initial.contiguous()
     for _ in range(octaves):
-        if kernel_on(cfg.use_octave_kernel, img.dtype, img.device):
-            g, d = octave_blur(img, hks)
-        else:
-            g, d = octave_blur_plain(img, hks, _blur)
+        g, d = octave_stacks(img, cfg, hks)
         gaussians.append(g)
         dogs.append(d)
         img = downsample_nearest_x2(g[:, g.shape[1] - 3]).contiguous()

@@ -30,7 +30,9 @@ and then on every route, over the route's gauss gather space:
   5. ``describe``: descriptors.
 
 Each stage is a plain function on tensors, so a caller can time them one
-by one.  ``detect_stages`` is the staged path: one image, octave by octave,
+by one.  ``detect_fn`` is the JAX package's one-image function of the same
+name (the non-front route with row-major gathers), which its ``parallel/``
+maps over a batch.  ``detect_stages`` is the staged path: one image, octave by octave,
 every stage's output kept (the parity and debugging view); its stages
 gather from row-major twin rows (``gather.build_block_rows`` /
 ``build_multi_rows``, kernel H in float32 on the card).
@@ -65,7 +67,12 @@ from sift_tpu_torch.models.pyramid import (
     front_pyramids,
     front_twin_pyramids,
 )
-from sift_tpu_torch.ops.gather import StackSpace, compact_mask, cube_rows_params
+from sift_tpu_torch.ops.gather import (
+    StackSpace,
+    build_multi_rows,
+    compact_mask,
+    cube_rows_params,
+)
 from sift_tpu_torch.ops.octave_front import front_twin_strip
 from sift_tpu_torch.ops.twin_rows import twin_rows_strips
 from sift_tpu_torch.utils import keypoints as kputil
@@ -120,11 +127,11 @@ def gather_space(stacks, twin_rows: bool):
     return twin_rows_strips(stacks, TWIN_BLK) if twin_rows else StackSpace.build(stacks)
 
 
-def front(imgs: torch.Tensor, cfg: SiftConfig):
+def front(imgs: torch.Tensor, cfg: SiftConfig, octaves: int | None = None):
     """Front route, stage 1: (gaussians, dogs, masks, counts), per-octave
-    lists."""
+    lists.  ``octaves``: the pyramid's depth (default ``octaves_for``)."""
     initial = compute_initial_image(imgs, cfg)
-    return front_pyramids(initial, cfg, octaves_for(imgs, cfg))
+    return front_pyramids(initial, cfg, octaves or octaves_for(imgs, cfg))
 
 
 def front_twin_plan(cfg: SiftConfig, octaves: int, h1: int, w1: int,
@@ -163,21 +170,23 @@ def front_twin_plan(cfg: SiftConfig, octaves: int, h1: int, w1: int,
     )
 
 
-def front_twin(imgs: torch.Tensor, cfg: SiftConfig, plan: FrontTwinPlan | None = None):
+def front_twin(imgs: torch.Tensor, cfg: SiftConfig, plan: FrontTwinPlan | None = None,
+               octaves: int | None = None):
     """Front-twin route, stage 1: (gauss ``MultiRows``, DoG ``CubeRows``,
     masks, counts).  ``plan``: a layout other than ``front_twin_plan``'s
     (callers that stage the route by hand, to send octaves through the
-    fallback)."""
+    fallback); ``octaves``: as for ``front``."""
     initial = compute_initial_image(imgs, cfg)
     if plan is None:
-        plan = front_twin_plan(cfg, octaves_for(imgs, cfg), *initial.shape[1:])
+        plan = front_twin_plan(cfg, octaves or octaves_for(imgs, cfg), *initial.shape[1:])
     return front_twin_pyramids(initial, cfg, plan)
 
 
-def pyramids(imgs: torch.Tensor, cfg: SiftConfig):
-    """Non-front route, stage 1: (gaussians, dogs), per-octave lists."""
+def pyramids(imgs: torch.Tensor, cfg: SiftConfig, octaves: int | None = None):
+    """Non-front route, stage 1: (gaussians, dogs), per-octave lists;
+    ``octaves``: as for ``front``."""
     initial = compute_initial_image(imgs, cfg)
-    return build_pyramids(initial, cfg, octaves_for(imgs, cfg))
+    return build_pyramids(initial, cfg, octaves or octaves_for(imgs, cfg))
 
 
 def detect_refine(dog_space, masks, counts, cfg: SiftConfig):
@@ -239,23 +248,24 @@ def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
 
 
 def run_route(imgs: torch.Tensor, cfg: SiftConfig, route: str,
-              plan: FrontTwinPlan | None = None):
+              plan: FrontTwinPlan | None = None, octaves: int | None = None):
     """The stages of one batch route (``"front_twin"``, ``"front"``,
     ``"twin_rows"`` or ``"stacks"``) on a (B, H, W, C) tensor, whatever
     ``route_of`` would choose: (final buffer, counts dict).  ``plan``: see
-    ``front_twin``."""
+    ``front_twin``; ``octaves``: the pyramid's depth (default
+    ``octaves_for``)."""
     if route == "front_twin":
-        gsp, dsp, masks, counts = front_twin(imgs, cfg, plan)
+        gsp, dsp, masks, counts = front_twin(imgs, cfg, plan, octaves)
         kp, c_det = detect_refine(dsp, masks, counts, cfg)
         del dsp, masks, counts
     elif route == "front":
-        gaussians, dogs, masks, counts = front(imgs, cfg)
+        gaussians, dogs, masks, counts = front(imgs, cfg, octaves)
         kp, c_det = detect_refine(StackSpace.build(dogs), masks, counts, cfg)
         del dogs, masks, counts
         gsp = StackSpace.build(gaussians)
         del gaussians
     elif route in ("twin_rows", "stacks"):
-        gaussians, dogs = pyramids(imgs, cfg)
+        gaussians, dogs = pyramids(imgs, cfg, octaves)
         kp, c_det = _detect_refine_fused(dogs, cfg, route == "twin_rows")
         del dogs
         gsp = gather_space(gaussians, route == "twin_rows")
@@ -272,6 +282,28 @@ def detect_and_describe(image, cfg: SiftConfig | None = None, device="cuda") -> 
     cfg = cfg or SiftConfig()
     img = torch.as_tensor(np.asarray(image) if not torch.is_tensor(image) else image)
     return detect_and_describe_batch(img[None], cfg, device=device).map(lambda a: a[0])
+
+
+def detect_fn(img, cfg: SiftConfig, octaves: int, device="cuda") -> Keypoints:
+    """Detect + describe one (H, W[, C]) image through ``octaves`` octaves,
+    as the JAX package's ``detect_fn`` (the function its ``parallel/``
+    maps over a batch): the non-front route with the blur chain (kernel D
+    for each float32 blur on the card, as the JAX function forces its XLA
+    blur), extrema and Newton refinement of all octaves at ``cfg.kp_cap``,
+    orientation and descriptors gathered from row-major ``MultiRows``
+    (``build_multi_rows``, kernel H in float32 on the card), dedup.
+    Returns one (ori_cap,) buffer."""
+    dev = resolve_device(device)
+    img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img)
+    initial = compute_initial_image(as_batch(img[None], cfg, dev), cfg)
+    gaussians, dogs = build_pyramids(
+        initial, dataclasses.replace(cfg, use_octave_kernel=False), octaves)
+    kp, _ = _detect_refine_fused(dogs, cfg, False)
+    del dogs
+    gsp = build_multi_rows([g[0] for g in gaussians])
+    del gaussians
+    cand, _ = orient(gsp, kp, cfg)
+    return describe(gsp, dedup(cand, cfg), cfg).map(lambda a: a[0])
 
 
 def host_exact_sizes(kp: Keypoints, off0, cfg: SiftConfig) -> Keypoints:

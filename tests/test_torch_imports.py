@@ -125,3 +125,63 @@ def test_sfm_entry_points_default_to_cuda():
     uv = np.zeros((20, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sfm.run_sfm_from_matches([uv, uv], {(0, 1): np.stack([np.arange(20)] * 2, 1)}, k)
+
+
+PARALLEL_SLICE = ["parallel.mesh", "parallel.multihost", "parallel.dist", "parallel.spatial",
+                  "parallel.ba_dist", "utils.checkpoint", "utils.profiling", "utils.debug"]
+
+
+def test_parallel_slice_modules_stand_alone():
+    """The multi-device layer and the checkpoint, profiling and debug utils
+    import neither JAX nor the JAX package, directly or through what they
+    import."""
+    mods = "; ".join(f"import sift_tpu_torch.{m}" for m in PARALLEL_SLICE)
+    code = (f"import sys; {mods}; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'sift_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_parallel_slice_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """``make_mesh``, ``detect_fn``, ``cached_detect``, ``shard_ba_problem``
+    and ``load_keypoints`` default to the card and raise without one;
+    ``batched_detect`` and ``spatial_detect_and_describe`` run on their
+    mesh's device, which is the card unless ``make_mesh`` is asked for the
+    CPU; ``initialize()`` without settings is a no-op."""
+    import inspect
+
+    import torch.distributed as dist
+
+    from sift_tpu_torch.models.sift import detect_fn
+    from sift_tpu_torch.parallel import batched_detect, make_mesh, spatial_detect_and_describe
+    from sift_tpu_torch.parallel.ba_dist import shard_ba_problem
+    from sift_tpu_torch.parallel.multihost import initialize
+    from sift_tpu_torch.utils.checkpoint import cached_detect, load_keypoints
+
+    for fn in (make_mesh, detect_fn, cached_detect, shard_ba_problem, load_keypoints):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    for fn in (batched_detect, spatial_detect_and_describe):
+        assert inspect.signature(fn).parameters["mesh"].default is inspect.Parameter.empty
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    initialize()
+    assert not dist.is_initialized()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_fn(np.zeros((32, 48), np.float32), SiftConfig(), 2)
+    img = tmp_path / "a.png"
+    img.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cached_detect(str(img), cache_dir=str(tmp_path / "cache"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_ba_problem(np.zeros((2, 6)), np.zeros((1, 3)), np.zeros(2, int),
+                         np.zeros(2, int), np.zeros((2, 2)), 1, np.ones(2), np.zeros(2),
+                         np.zeros(2, bool))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_keypoints(str(tmp_path / "missing.npz"))
