@@ -10,7 +10,10 @@ matcher; 8 pairs of 2048 x 2048 and one of 1286 x 1430, with planted
 ties), C (octave blur), D (one separable blur, one launch; ptxas must
 report no stack frame and no spills), E (twin-row gather space), F
 (octave front into the front-twin gather layouts), G (cube-packed DoG
-rows) and H (row-major twin rows).  Then it drives the port's routes on
+rows) and H (row-major twin rows); E and H (one launch a gather space)
+also through their launcher into NaN-filled buffers, so that a row the
+launch does not write fails, at the sweep's, the staged path's and the
+demo pair's shapes, blk 64 and 128.  Then it drives the port's routes on
 640x480 frames (the CAVE-01 pair, the oracle-decoded pixels of
 tests/data), capacities extrema/kp/ori = 6144/1536/2048, float32:
 
@@ -79,7 +82,9 @@ orientation and descriptors (phase ``radius_classes``) against the
 worst-case window on the main path's buffers, in turns: lanes per class,
 the two stages' and the stage-by-stage sweep's ms, and the outputs
 compared (the same candidates; descriptor bytes that differ printed);
-then each kernel.
+then each kernel, beside its library yardstick where there is one (B:
+``cdist`` + ``topk``; D: cuDNN convolutions; E, G, H: ``copy_`` from an
+overlapping ``as_strided`` view of the padded input).
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as the last
@@ -358,6 +363,116 @@ def twin_bound(floats_in, floats_out):
     """Least time of kernel E's gather spaces: every stack read once and
     each whole (B, RT, 2 blk) buffer written once; no arithmetic."""
     return 4 * (floats_in + floats_out) / HBM_BPS * 1e3, 0.0
+
+
+def check_twin_launch(stacks, blk, what) -> float:
+    """Kernel E through its launcher into a NaN-filled buffer, against the
+    plain version over the whole buffer (gaps and strip padding included):
+    a row the launch does not write stays NaN and fails."""
+    import torch
+
+    from sift_tpu_torch.ops import twin_rows as TR
+
+    bsz = stacks[0].shape[0]
+    table = TR.strips_table(tuple(tuple(v.shape[1:]) for v in stacks), blk)
+    buf = torch.full((bsz, table.rows, 2 * blk), float("nan"), device=stacks[0].device)
+    TR.launch(table, stacks, buf)
+    return same(buf, TR.twin_rows_strips_plain(stacks, blk).rows,
+                f"{what} blk {blk}, NaN-filled buffer, vs plain")
+
+
+def check_rows_launch(vols, blk, what) -> float:
+    """Kernel H the same way: the volumes' row-major rows, one launch."""
+    import torch
+
+    from sift_tpu_torch.ops import twin_rows as TR
+
+    table = TR.rows_table(tuple(v.shape for v in vols), blk)
+    buf = torch.full((1, table.rows, 2 * blk), float("nan"), device=vols[0].device)
+    TR.launch(table, vols, buf)
+    ref = torch.cat([TR.twin_rows_2d_plain(v.reshape(-1, v.shape[-1]), blk) for v in vols])
+    return same(buf[0], ref, f"{what} blk {blk}, NaN-filled buffer, vs plain")
+
+
+def twin_padded(stacks, blk):
+    """The untimed part of kernel E's yardstick: each octave's flat rows
+    padded with zeros to (nb + 1) * blk columns and to whole strips."""
+    import torch.nn.functional as F
+
+    from sift_tpu_torch.ops.twin_rows import plan
+
+    metas, total = plan(tuple(tuple(v.shape[1:]) for v in stacks), blk)
+    pads = [F.pad(v.reshape(v.shape[0], -1, v.shape[-1]),
+                  (0, (nb + 1) * blk - v.shape[-1], 0, rpad - v.shape[1] * v.shape[2]))
+            for v, (nb, _, rpad, _) in zip(stacks, metas)]
+    return pads, metas, total
+
+
+def library_twin(pads, metas, total, blk):
+    """The yardstick for kernel E, never called by the port: per octave one
+    ``copy_`` from an overlapping ``as_strided`` view of its padded rows
+    into the view of its region, and a ``zero_`` per alignment gap."""
+    import torch
+
+    bsz = pads[0].shape[0]
+    rows = torch.empty((bsz, total, 2 * blk), device=pads[0].device)
+    end = 0
+    for p, (nb, ls, rpad, base) in zip(pads, metas):
+        if base > end:
+            rows[:, end:base].zero_()
+        st, wp = 1 << ls, (nb + 1) * blk
+        rows[:, base: base + nb * rpad].view(bsz, rpad // st, nb, st, 2 * blk).copy_(
+            p.as_strided((bsz, rpad // st, nb, st, 2 * blk), (rpad * wp, st * wp, blk, wp, 1)))
+        end = base + nb * rpad
+    return rows
+
+
+def library_rows(pads, blk):
+    """The yardstick for kernel H: per volume one ``copy_`` from an
+    overlapping ``as_strided`` view of its rows padded to (nb + 1) * blk
+    columns into the view of its rows."""
+    import torch
+
+    total = sum(p.shape[0] * (p.shape[1] // blk - 1) for p in pads)
+    rows = torch.empty((total, 2 * blk), device=pads[0].device)
+    base = 0
+    for p in pads:
+        r, wp = p.shape
+        nb = wp // blk - 1
+        rows[base: base + r * nb].view(r, nb, 2 * blk).copy_(
+            p.as_strided((r, nb, 2 * blk), (wp, blk, 1)))
+        base += r * nb
+    return rows
+
+
+def cube_padded(d, strip):
+    """The untimed part of kernel G's yardstick: the DoG stack with one zero
+    column before and enough after for every window, and rows to a whole
+    strip (``gather.cube_rows_plain``'s padding)."""
+    import torch.nn.functional as F
+
+    from sift_tpu_torch.ops.gather import cube_rows_params
+
+    _, s, h, w = d.shape
+    stride, sw, nbp = cube_rows_params(s, w)
+    return F.pad(d, (1, (nbp - 1) * stride + sw - 1 - w, 0, -(-h // strip) * strip - h))
+
+
+def library_cube(dp, strip, out, base):
+    """The yardstick for kernel G: one ``copy_`` from an overlapping
+    ``as_strided`` view of the padded stack into the lanes [0, S * sw) of
+    the octave's 128-lane rows from ``base`` (the other lanes are not
+    written)."""
+    from sift_tpu_torch.ops.gather import cube_rows_params
+
+    b, s, hp, wp = dp.shape
+    stride, sw, _ = cube_rows_params(s, wp)
+    nbp = (wp - sw) // stride + 1
+    nstr = hp // strip
+    dst = out[:, base: base + nstr * nbp * strip].view(b, nstr, nbp, strip, 128)
+    dst[..., : s * sw].unflatten(-1, (s, sw)).copy_(dp.as_strided(
+        (b, nstr, nbp, strip, s, sw), (s * hp * wp, strip * wp, stride, wp, hp * wp, 1)))
+    return out
 
 
 def front_twin_bound(plan, bsz, hks):
@@ -1281,21 +1396,28 @@ def main() -> int:
               max_abs_err=d_err, bytes_ms=d_times[0], ops_ms=d_times[1]))
 
     # -- kernel E vs its plain version: the batch's gauss and DoG stacks at
-    # the non-front route's twin width --------------------------------------
+    # the non-front route's twin width and at 128, through the launcher into
+    # NaN-filled buffers (a row the launch misses stays NaN), and through the
+    # wrapper (one launch a space) ----------------------------------------------
     e_err = 0.0
     e_rows, e_in = [], 0
     for name, stacks in (("gauss", gs16), ("dog", ds16)):
+        for blk in (S.TWIN_BLK, 128):
+            e_err = max(e_err, check_twin_launch(stacks, blk, f"kernel E {name}"))
+        before = twin_rows_strips.launches
         got = twin_rows_strips(stacks, S.TWIN_BLK)
         ref = twin_rows_strips_plain(stacks, S.TWIN_BLK)
         torch.cuda.synchronize()
+        need(twin_rows_strips.launches == before + 1, f"kernel E {name}: not one launch")
         need((got.nbs, got.bases, got.shp) == (ref.nbs, ref.bases, ref.shp), f"kernel E {name} plan")
-        e_err = max(e_err, same(got.rows, ref.rows, f"kernel E {name} vs plain"))
+        e_err = max(e_err, same(got.rows, ref.rows, f"kernel E {name} wrapper vs plain"))
         e_rows.append(got.rows.numel())
         e_in += sum(v.numel() for v in stacks)
         del got, ref
     e_times = twin_bound(e_in, sum(e_rows))
     emit(dict(phase="kernel_e_vs_plain", stacks=["gauss", "dog"], batch=BATCH,
-              blk=S.TWIN_BLK, buffer_floats=e_rows, bit_equal=True, max_abs_err=e_err,
+              blks=[S.TWIN_BLK, 128], nan_filled_buffers=True, launches_per_space=1,
+              buffer_floats=e_rows, bit_equal=True, max_abs_err=e_err,
               bytes_ms=e_times[0], ops_ms=e_times[1]))
 
     # -- kernel F vs its plain version at every octave shape of the batch, in
@@ -1399,21 +1521,29 @@ def main() -> int:
     del dcr
 
     # -- kernel H vs its plain version: one frame's gauss and DoG stacks, the
-    # staged path's blk 128 and the batch routes' 64 ---------------------------
+    # staged path's blk 128 and the batch routes' 64, through the launcher
+    # into NaN-filled buffers and through build_multi_rows (one launch) and
+    # twin_rows_2d (single volumes) -----------------------------------------
     h_vols = [g[0] for g in gs16] + [d[0] for d in ds16]
     h_err = 0.0
     h_in = sum(v.numel() for v in h_vols)
     for blk in (128, 64):
+        h_err = max(h_err, check_rows_launch(h_vols, blk, "kernel H"))
         before = twin_rows_2d.launches
         got = build_multi_rows(h_vols, blk)
-        need(twin_rows_2d.launches == before + len(h_vols), "build_multi_rows: kernel H not launched")
+        need(twin_rows_2d.launches == before + 1, "build_multi_rows: not one launch of kernel H")
         ref = torch.cat([twin_rows_2d_plain(v.reshape(-1, v.shape[-1]), blk) for v in h_vols])
-        h_err = max(h_err, same(got.rows, ref, f"kernel H blk {blk} vs plain"))
+        h_err = max(h_err, same(got.rows, ref, f"kernel H blk {blk} build_multi_rows vs plain"))
+        for v in h_vols[::5]:
+            m = v.reshape(-1, v.shape[-1])
+            h_err = max(h_err, same(twin_rows_2d(m, blk), twin_rows_2d_plain(m, blk),
+                                    f"kernel H blk {blk} single {tuple(m.shape)} vs plain"))
         if blk == 128:
             h_out = got.rows.numel()
         del got, ref
     h_times = twin_bound(h_in, h_out)
     emit(dict(phase="kernel_h_vs_plain", volumes=len(h_vols), blks=[128, 64], floats_in=h_in,
+              nan_filled_buffers=True, launches_per_build_multi_rows=1,
               floats_out_blk128=h_out, bit_equal=True, max_abs_err=h_err,
               bytes_ms=h_times[0], ops_ms=h_times[1]))
 
@@ -1612,7 +1742,7 @@ def main() -> int:
     launches["xla_route"] = read_counts()
     n_blurs = 1 + len(hks) * octaves
     expect_launches("xla_route", dict(octave_front=0, top2=0, octave_blur=0,
-                                      blur_pass=n_blurs, twin_rows=2 * octaves,
+                                      blur_pass=n_blurs, twin_rows=2,
                                       octave_front_twin=0, cube_pack=0, twin_rows_2d=0))
     check_batch(kx, cx, "XLA route")
     same_buffers(kx, kp, "XLA route vs the main path")
@@ -1632,7 +1762,7 @@ def main() -> int:
                                       kw.valid[1::2], cfg.ratio_threshold, device=dev)
     launches["window5"] = read_counts()
     expect_launches("window5", dict(octave_front=0, octave_front_twin=0, octave_blur=octaves,
-                                    blur_pass=1, twin_rows=2 * octaves, top2=1))
+                                    blur_pass=1, twin_rows=2, top2=1))
     honest(kw, cw, "window-5 route")
     nkw = kw.valid.sum(1).tolist()
     need(min(nkw) > 0, f"window-5 route: keypoint counts {nkw}")
@@ -1658,17 +1788,26 @@ def main() -> int:
     dseed = separable_blur_kernel(dgray, pre)
     d_err = max(d_err, same(dseed, separable_blur(dgray, pre), "kernel D demo initial vs plain"))
     d_plan(tuple(dgray.shape), pre)
-    dshapes = []
+    dshapes, dgs, dds = [], [], []
     for o in range(doct):
         dshapes.append(tuple(dseed.shape[1:]))
-        g_plain = octave_blur_plain(dseed, hks)[0]
+        g_plain, dog_plain = octave_blur_plain(dseed, hks)
         for k, hk in enumerate(hks):
             layer = g_plain[:, k].contiguous()
             d_err = max(d_err, same(separable_blur_kernel(layer, hk), separable_blur(layer, hk),
                                     f"kernel D demo octave {o} blur {k + 1} vs plain"))
             d_plan(tuple(layer.shape), hk)
         dseed = downsample_nearest_x2(g_plain[:, g_plain.shape[1] - 3]).contiguous()
-        del g_plain
+        dgs.append(g_plain)
+        dds.append(dog_plain.contiguous())
+        del g_plain, dog_plain
+    # Kernels E and H at the demo's shapes (widths 1510, 755, ..., 11), the
+    # batch's stacks and one frame's volumes, into NaN-filled buffers.
+    for blk in (S.TWIN_BLK, 128):
+        for name, stacks in (("gauss", dgs), ("dog", dds)):
+            e_err = max(e_err, check_twin_launch(stacks, blk, f"kernel E demo {name}"))
+        h_err = max(h_err, check_rows_launch([v[0] for v in dgs + dds], blk, "kernel H demo"))
+    del dgs, dds
 
     def demo_match(kp):
         return match_descriptors(kp.desc[0:1], kp.valid[0:1], kp.desc[1:2], kp.valid[1:2],
@@ -1709,7 +1848,7 @@ def main() -> int:
             ("demo_xla_route", lambda: S.detect_and_describe_batch(
                 dimgs, dx_cfg, return_counts=True, device=dev),
              dict(octave_front=0, octave_front_twin=0, octave_blur=0,
-                  blur_pass=1 + len(hks) * doct, twin_rows=2 * doct))):
+                  blur_pass=1 + len(hks) * doct, twin_rows=2))):
         zero_counts()
         kr, cr = run()
         launches[path] = read_counts()
@@ -2266,11 +2405,29 @@ def main() -> int:
     g_ms = cuda_ms(lambda: [cube_pack_rows(d, st, out=pkg, base=pb) for d, st, pb in g_args],
                    KERNEL_REPS)
     g_plain_ms = cuda_ms(lambda: [cube_rows_plain(d, st) for d, st, _ in g_args], 3)
+    # The library yardsticks: one ``copy_`` per octave or volume from an
+    # overlapping ``as_strided`` view of the input, which is padded outside
+    # the timed window; each first held against the kernel's output.
+    g_pads = [(cube_padded(d, st), st, pb) for d, st, pb in g_args]
+    g_lib = torch.zeros_like(pkk)
+    for dp, st, pb in g_pads:
+        library_cube(dp, st, g_lib, pb)
+    same(g_lib, pkk, "kernel G's library yardstick vs kernel F's buffer")
+    del g_lib
+    g_lib_ms = cuda_ms(lambda: [library_cube(dp, st, pkg, pb) for dp, st, pb in g_pads],
+                       KERNEL_REPS)
     g_bound, g_by = bound(*g_times)
     h_mats = [v.reshape(-1, v.shape[-1]) for v in h_vols]
-    h_ms = cuda_ms(lambda: [twin_rows_2d(m, 128) for m in h_mats], KERNEL_REPS)
+    h_ms = cuda_ms(lambda: build_multi_rows(h_vols, 128), KERNEL_REPS)
+    h_dev_ms = graph_ms(lambda: build_multi_rows(h_vols, 128), KERNEL_REPS)
+    h_single_ms = cuda_ms(lambda: [twin_rows_2d(m, 128) for m in h_mats], KERNEL_REPS)
     h_plain_ms = cuda_ms(lambda: [twin_rows_2d_plain(m, 128) for m in h_mats], 5)
-    h_space_ms = cuda_ms(lambda: build_multi_rows(h_vols, 128), KERNEL_REPS)
+    h_pads = [torch.nn.functional.pad(m, (0, (-(-m.shape[1] // 128) + 1) * 128 - m.shape[1]))
+              for m in h_mats]
+    same(library_rows(h_pads, 128), build_multi_rows(h_vols, 128).rows,
+         "kernel H's library yardstick vs build_multi_rows")
+    h_lib_ms = cuda_ms(lambda: library_rows(h_pads, 128), KERNEL_REPS)
+    del h_pads
     h_bound, h_by = bound(*h_times)
     c_ms = cuda_ms(lambda: [octave_blur(s, hks) for s in seeds], KERNEL_REPS)
     c_plain_ms = cuda_ms(lambda: [octave_blur_plain(s, hks) for s in seeds], 3)
@@ -2289,8 +2446,16 @@ def main() -> int:
     d_bound, d_by = bound(*d_times)
     e_ms = cuda_ms(lambda: [twin_rows_strips(st, S.TWIN_BLK) for st in (gs16, ds16)],
                    KERNEL_REPS)
+    e_dev_ms = graph_ms(lambda: [twin_rows_strips(st, S.TWIN_BLK) for st in (gs16, ds16)],
+                        KERNEL_REPS)
     e_plain_ms = cuda_ms(lambda: [twin_rows_strips_plain(st, S.TWIN_BLK) for st in (gs16, ds16)],
                          3)
+    e_pads = [twin_padded(st, S.TWIN_BLK) for st in (gs16, ds16)]
+    for a, st in zip(e_pads, (gs16, ds16)):
+        same(library_twin(*a, S.TWIN_BLK), twin_rows_strips(st, S.TWIN_BLK).rows,
+             "kernel E's library yardstick vs the kernel")
+    e_lib_ms = cuda_ms(lambda: [library_twin(*a, S.TWIN_BLK) for a in e_pads], KERNEL_REPS)
+    del e_pads
     e_bound, e_by = bound(*e_times)
     emit(dict(phase="kernel_timing", octave_blur_ms=c_ms, octave_blur_plain_ms=c_plain_ms,
               octave_blur_one_frame_ms=c_frame_ms,
@@ -2301,11 +2466,14 @@ def main() -> int:
               top2_one_pair_ms=b_pair_ms, top2_one_pair_device_ms=b_pair_dev_ms,
               top2_one_pair_bound_ms=b_pair_bound,
               library_blur_max_abs_err=d_lib_err, twin_rows_ms=e_ms,
-              twin_rows_plain_ms=e_plain_ms, octave_front_twin_ms=f_ms,
+              twin_rows_device_ms=e_dev_ms, twin_rows_plain_ms=e_plain_ms,
+              twin_rows_library_ms=e_lib_ms, octave_front_twin_ms=f_ms,
               octave_front_twin_plain_ms=f_plain_ms, octave_front_twin_ms_by_octave=f_octave_ms,
               front_twin_zero_fill_ms=fill_ms,
-              cube_pack_ms=g_ms, cube_pack_plain_ms=g_plain_ms, twin_rows_2d_ms=h_ms,
-              twin_rows_2d_plain_ms=h_plain_ms, build_multi_rows_kernel_ms=h_space_ms))
+              cube_pack_ms=g_ms, cube_pack_plain_ms=g_plain_ms, cube_pack_library_ms=g_lib_ms,
+              build_multi_rows_kernel_ms=h_ms, build_multi_rows_device_ms=h_dev_ms,
+              twin_rows_2d_single_calls_ms=h_single_ms, twin_rows_2d_plain_ms=h_plain_ms,
+              twin_rows_2d_library_ms=h_lib_ms))
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -2328,8 +2496,11 @@ def main() -> int:
         # the main path (the front-twin route) for F, B and D, the front route
         # for A, the window-5 route for C and E (batch 16), the fallback run
         # for G, the staged path for H; ``launches_by_path`` has them all.
-        # No single PyTorch call computes an octave, the twin rows or the
-        # packed rows, so ``library_ms`` is null for all but B and D.
+        # No single PyTorch call computes an octave (A, C, F): ``library_ms``
+        # is null there.  E, G and H's yardstick is one ``copy_`` per octave
+        # or volume from an overlapping ``as_strided`` view of the input,
+        # padded outside the timed window (E adds a ``zero_`` per gap; G's
+        # writes only the lanes that hold values).
         dict(name="octave_blur", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:675",
@@ -2346,10 +2517,12 @@ def main() -> int:
              replaces="sift_tpu/ops/pallas_relayout.py:135",
              launches=launches["window5"]["twin_rows"], max_abs_err=e_err,
              ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound, bound_by=e_by,
-             library_ms=None, launches_by_path=by_path("twin_rows")),
+             library_ms=e_lib_ms, launches_by_path=by_path("twin_rows"), device_ms=e_dev_ms),
         # F's time covers the 8 octaves of a batch-16 pyramid into zeroed
         # buffers (their zero fill is front_twin_zero_fill_ms), G's the same
-        # octaves' DoG stacks, H's one frame's 16 volumes at blk 128.
+        # octaves' DoG stacks, H's one frame's 16 volumes at blk 128 through
+        # build_multi_rows (one launch), beside the same 16 as single calls
+        # (the staged path's pattern).
         dict(name="octave_front_twin", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:513",
@@ -2360,12 +2533,13 @@ def main() -> int:
              replaces="sift_tpu/ops/pallas_relayout.py:195",
              launches=launches["fallback"]["cube_pack"], max_abs_err=g_err,
              ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound, bound_by=g_by,
-             library_ms=None, launches_by_path=by_path("cube_pack")),
+             library_ms=g_lib_ms, launches_by_path=by_path("cube_pack")),
         dict(name="twin_rows_2d", route="cuda", source="sift_tpu_torch/csrc/twin_rows.cu",
              replaces="sift_tpu/ops/pallas_relayout.py:29",
              launches=launches["staged"]["twin_rows_2d"], max_abs_err=h_err,
              ms=h_ms, plain_ms=h_plain_ms, bound_ms=h_bound, bound_by=h_by,
-             library_ms=None, launches_by_path=by_path("twin_rows_2d")),
+             library_ms=h_lib_ms, launches_by_path=by_path("twin_rows_2d"), device_ms=h_dev_ms,
+             sixteen_single_calls_ms=h_single_ms),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

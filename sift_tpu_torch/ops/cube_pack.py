@@ -14,6 +14,7 @@ raises.  Pure data movement.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,16 +49,21 @@ def cube_pack_rows(d: torch.Tensor, strip: int = 64, out: torch.Tensor | None = 
         raise ValueError(f"cube_pack_rows: unsupported device {d.device}")
     if d.dtype != torch.float32 or not d.is_contiguous():
         raise ValueError("cube_pack_rows: d must be contiguous float32")
-    fn = kernels.load("cube_pack").cube_pack_launch
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, i, i, i, i, i, ll, ll, p]
-    fn.restype = i
     with torch.cuda.device(d.device):
-        err = fn(d.data_ptr(), out.data_ptr(), b, s, h, w, strip.bit_length() - 1,
-                 out.shape[1], base, torch.cuda.current_stream(d.device).cuda_stream)
+        err = _launcher()(d.data_ptr(), out.data_ptr(), b, s, h, w, strip.bit_length() - 1,
+                          out.shape[1], base, torch.cuda.current_stream(d.device).cuda_stream)
     kernels.check(err, "cube_pack")
     cube_pack_rows.launches += 1
     return out
 
 
 cube_pack_rows.launches = 0
+
+
+@functools.cache
+def _launcher():
+    fn = kernels.load("cube_pack").cube_pack_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, i, i, i, i, i, ll, ll, p]
+    fn.restype = i
+    return fn

@@ -275,17 +275,18 @@ class MultiRows(_Space):
 
 def build_multi_rows(vols: list[torch.Tensor], blk: int = 128) -> MultiRows:
     """(S, H_o, W_o) volumes -> their row-major ``MultiRows``: each
-    volume's ``build_block_rows`` rows, one after another."""
-    brs = [build_block_rows(v, blk) for v in vols]
-    bases, acc = [], 0
-    for br in brs:
-        bases.append(acc)
-        acc += br.rows.shape[0]
-    return MultiRows(
-        rows=torch.cat([br.rows for br in brs], dim=0),
-        shapes=tuple(br.shape for br in brs), blk=blk,
-        nbs=tuple(br.nb for br in brs), bases=tuple(bases),
-    )
+    volume's ``build_block_rows`` rows, one after another.  Float32
+    volumes go through kernel H's wrapper (ops/twin_rows.twin_rows_2d_multi:
+    one launch for all volumes on the card, its plain version on the CPU);
+    any other type takes the plain version."""
+    from sift_tpu_torch.ops.twin_rows import twin_rows_2d_multi, twin_rows_2d_multi_plain
+
+    f32 = all(v.dtype == torch.float32 for v in vols)
+    fn = twin_rows_2d_multi if f32 else twin_rows_2d_multi_plain
+    rows, bases = fn([v.contiguous() for v in vols], blk)
+    shapes = tuple(v.shape for v in vols)
+    return MultiRows(rows=rows, shapes=shapes, blk=blk,
+                     nbs=tuple(-(-s[-1] // blk) for s in shapes), bases=bases)
 
 
 def twin_strided(vol_b: torch.Tensor, blk: int, st: int, l0: int = 0,

@@ -2,6 +2,7 @@
 of kernel H; ``BlockRows``; the row-major ``MultiRows``) against the JAX
 package: the Pallas kernel ``pallas_relayout.twin_rows_2d`` in interpret
 mode, ``gather.build_block_rows`` / ``build_multi_rows`` and their gathers;
+the table kernel H is launched with, walked as the kernel walks it;
 and the staged path's stages over those rows against the same stages over
 plain stacks.  Pure data movement: every tolerance is none."""
 
@@ -28,6 +29,7 @@ from sift_tpu_torch.ops.gather import (
     gather_cubes,
     gather_patches,
 )
+from sift_tpu_torch.ops import twin_rows as TR
 from sift_tpu_torch.ops.twin_rows import twin_rows_2d, twin_rows_2d_plain
 from sift_tpu_torch.utils import keypoints as kputil
 
@@ -177,3 +179,33 @@ def test_staged_stages_over_rows_equal_stages_over_stacks(dtype):
         desc[sel] = compute_descriptors_all(sp, fin.map(lambda a: a[None]), cfg,
                                             octave_of_volume=(o,))[0][sel]
     assert torch.equal(desc[fin.valid], fin.desc[fin.valid])
+
+
+# Volumes of every width the tables must take (1, 10, 63, 64, 65, 130, 755,
+# and 1510: two block chunks at blk 128), single-row volumes among them.
+TABLE_VOLS = [(1, 1, 1), (1, 1, 755), (2, 3, 10), (3, 2, 63), (1, 4, 64), (2, 2, 65),
+              (1, 3, 130), (1, 2, 1510)]
+
+
+@pytest.mark.parametrize("blk", [64, 128])
+def test_one_launch_multi_rows_table_equals_jax(blk):
+    """The one-launch path of build_multi_rows: kernel H's table, walked
+    unit by unit as the kernel walks it (``walk_plain``) into a NaN-filled
+    buffer, writes every row exactly once and gives the JAX package's
+    build_multi_rows bases and rows; the port's build_multi_rows (the plain
+    version on the CPU) gives the same.  Tolerance: none."""
+    vols = [_vol(s, seed=20 + i) for i, s in enumerate(TABLE_VOLS)]
+    mats = [torch.from_numpy(v.reshape(-1, v.shape[-1])) for v in vols]
+    table = TR.rows_table(tuple(tuple(m.shape) for m in mats), blk)
+    assert table.regions == TR.rows_table(tuple(tuple(v.shape) for v in vols), blk).regions
+    out = torch.full((1, table.rows, 2 * blk), float("nan"))
+    writes = TR.walk_plain(table, mats, out)
+    assert (writes == 1).all()
+    want = JG.build_multi_rows([jnp.asarray(v) for v in vols], blk)
+    assert tuple(e.base for e in table.regions) == tuple(want.bases)
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(want.rows))
+    got = build_multi_rows([torch.from_numpy(v) for v in vols], blk)
+    assert got.bases == tuple(want.bases) and got.nbs == tuple(want.nbs)
+    assert torch.equal(got.rows, out[0])
+    one = TR.rows_table((tuple(mats[2].shape),), blk).regions
+    assert len(one) == 1 and one[0].base == 0 and one[0].ls == 0 and one[0].rpad == mats[2].shape[0]

@@ -1,11 +1,13 @@
 """The port's twin-row gather space (the plain version of kernel E) against
 the JAX package: ``ops/pallas_relayout.twin_rows_strips`` in interpret
 mode, its row contents against ``ops/gather.build_multi_rows``, and the
-gathers and the non-front route on it against the plain stacks."""
+gathers and the non-front route on it against the plain stacks; and the
+table kernel E is launched with, walked as the kernel walks it."""
 
 from __future__ import annotations
 
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from sift_tpu.ops.gather import build_multi_rows
 from sift_tpu.ops.pallas_relayout import twin_rows_strips as jax_twin_rows_strips
 from sift_tpu_torch import SiftConfig
 from sift_tpu_torch.models import sift as S
+from sift_tpu_torch.ops import twin_rows as TR
 from sift_tpu_torch.ops.gather import StackSpace, gather_cubes, gather_patches
 from sift_tpu_torch.ops.twin_rows import twin_rows_strips
 from sift_tpu_torch.utils.keypoints import FIELDS
@@ -147,3 +150,54 @@ def test_twin_rows_route_equals_stacks_route(dtype):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     for k in ca:
         assert torch.equal(torch.as_tensor(ca[k]), torch.as_tensor(cb[k])), k
+
+
+# Kernel E's launch table: per-octave (B, S, H, W) shapes at B = 2 and blk,
+# with the widths 1, 10, 63, 64, 65, 130, 755 and 1510 (two block chunks at
+# blk 128), one-row octaves, three or more octaves and alignment gaps.
+TABLE_CASES = {
+    "blk64": ([(2, 2, 3, 65), (2, 2, 17, 130), (2, 2, 2, 10), (2, 2, 1, 755), (2, 1, 1, 1)], 64),
+    "blk128": ([(2, 2, 3, 64), (2, 2, 17, 65), (2, 2, 2, 63), (2, 1, 1, 1)], 128),
+    "blk128_wide": ([(2, 2, 3, 10), (2, 2, 17, 130), (2, 2, 2, 755), (2, 1, 3, 1510)], 128),
+}
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_launch_table_walk_writes_every_row_once(case):
+    """The table kernel E's wrapper launches, walked unit by unit as the
+    kernel walks it (``walk_plain``) into a NaN-filled buffer: every row,
+    gaps and strip padding included, written exactly once; the buffer
+    equals ``twin_rows_strips_plain`` and, on every defined row, the
+    Pallas kernel in interpret mode.  Tolerance: none."""
+    shapes, blk = TABLE_CASES[case]
+    vols = [torch.from_numpy(v) for v in _stacks(shapes, seed=5)]
+    table = TR.strips_table(tuple(s[1:] for s in shapes), blk)
+    assert sum(e.src >= 0 for e in table.regions) == len(shapes) >= 3
+    assert any(e.src < 0 for e in table.regions), "no alignment gap in this case"
+    out = torch.full((2, table.rows, 2 * blk), float("nan"))
+    writes = TR.walk_plain(table, vols, out)
+    assert (writes == 1).all()
+    plain = TR.twin_rows_strips_plain(vols, blk)
+    assert torch.equal(out, plain.rows)
+    want = jax_twin_rows_strips([jnp.asarray(v.numpy()) for v in vols], blk, interpret=True)
+    w_rows, o_rows = np.asarray(want.rows), out.numpy()
+    for _, _, _, row in _defined_rows(plain):
+        np.testing.assert_array_equal(o_rows[:, row], w_rows[:, row])
+
+
+def test_table_limits_mirror_the_kernel():
+    """The constants the tables are built with are the kernel source's;
+    every table keeps a unit's staged tile within TILE_FLOATS and its block
+    chunks non-empty, and none holds more regions than a launch takes."""
+    src = (pathlib.Path(TR.__file__).parent.parent / "csrc" / "twin_rows.cu").read_text()
+    for name in ("ROWS", "TILE_FLOATS", "MAX_REGIONS", "MAX_BLK"):
+        assert re.search(rf"^#define {name} (\d+)", src, re.M).group(1) == str(getattr(TR, name))
+    for shapes, blk in list(TABLE_CASES.values()) + [
+            ([(16, 6, 960, 1280), (16, 6, 480, 640)], 64), ([(2, 6, 1996, 3020)], 64)]:
+        for e in TR.strips_table(tuple(s[1:] for s in shapes), blk).regions:
+            assert TR.ROWS * (e.nbc + 1) * blk <= TR.TILE_FLOATS
+            assert (e.nchunks - 1) * e.nbc < e.nb <= e.nchunks * e.nbc
+            assert e.rpad % (1 << e.ls) == 0
+            assert e.ls == 0 or (1 << e.ls) % TR.ROWS == 0  # a unit's rows lie in one strip
+    with pytest.raises(ValueError, match="at most 64"):
+        TR.rows_table(((3, 10),) * (TR.MAX_REGIONS + 1), 64)
