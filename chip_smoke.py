@@ -13,7 +13,8 @@ report no stack frame and no spills), E (twin-row gather space), F
 rows) and H (row-major twin rows); E and H (one launch a gather space)
 also through their launcher into NaN-filled buffers, so that a row the
 launch does not write fails, at the sweep's, the staged path's and the
-demo pair's shapes, blk 64 and 128.  Then it drives the port's routes on
+demo pair's shapes, blk 64 and 128, and G the same way at the batch's,
+the demo pair's and the wide frames' DoG stacks.  Then it drives the port's routes on
 640x480 frames (the CAVE-01 pair, the oracle-decoded pixels of
 tests/data), capacities extrema/kp/ori = 6144/1536/2048, float32:
 
@@ -21,6 +22,17 @@ tests/data), capacities extrema/kp/ori = 6144/1536/2048, float32:
   batch 16 (the pair x8), through kernels D (initial image), F and B;
 * the same route with two octaves sent through its fallback (kernels A
   and G beside F);
+* (phase ``wide_fallback``) two wide frames, CAVE-01 scene frames 00-15
+  and 01-16 set side by side (480 x 10,240, doubled to 960 x 20,480),
+  batch 2, capacities 131,072 / 24,576 / 32,768, through the entry point:
+  octave 0 is wider than kernel F takes, so the plan sends it, and only
+  it, through the fallback (A 1, G 1, F 7, D 1, B 1 with the matcher);
+  bit-equal to the front route (match set included), both gather buffers
+  and the route's outputs bit-equal to octave 0 forced through kernel F at
+  strip 128, kernel G on the wide stack into a NaN-filled buffer against
+  its plain version; the sweeps in turns beside the front route's, the
+  fallback octave's pieces (A, ``twin_strided`` and its copy, G) by CUDA
+  events beside their bounds, peak memory;
 * the front route (plain stacks) through ``run_route``: D, A, B;
 * the staged path ``detect_stages``, frame by frame, through C, D and H;
 * the non-front (XLA) route with ``use_octave_kernel=False``, batch 16,
@@ -180,6 +192,17 @@ PAR_BA_POINTS = 20000
 PAR_BA_FXY = (300.0, 300.0)
 PAR_BA_CXY = (160.0, 120.0)
 PAR_BA_ITERS = 12
+# Phase ``wide_fallback``: two wide frames, each CAVE-01 scene frames set
+# side by side (00-15 and 01-16: 480 x 10,240, doubled to 960 x 20,480),
+# batch 2, nothing cut.  Octave 0 is wider than kernel F takes (19,328
+# columns), so the entry point sends it through the fallback (kernels A
+# and G).  Capacities: kp / ori 16x the main path's; extrema 131,072, since
+# at 16x (98,304) the Newton cascade's first phase (extrema_cap / 4 lanes)
+# clipped 24,725 and 25,502 lanes (NVIDIA H100, float32).
+WIDE_FRAMES = 16
+WIDE_CAPS = dict(extrema_cap=131072, kp_cap=24576, ori_cap=32768)
+WIDE_PLAN0 = (128, 931)  # octave 0's strip and packed blocks a row
+WIDE_SWEEPS = 2
 TIMED_SWEEPS = 5
 KERNEL_REPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
@@ -223,6 +246,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host time of ``fn`` over ``reps`` synchronised runs, warm."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -473,6 +509,34 @@ def library_cube(dp, strip, out, base):
     dst[..., : s * sw].unflatten(-1, (s, sw)).copy_(dp.as_strided(
         (b, nstr, nbp, strip, s, sw), (s * hp * wp, strip * wp, stride, wp, hp * wp, 1)))
     return out
+
+
+def check_cube_launch(stacks, strips, bases, total, what, pack=None) -> float:
+    """Kernel G at each octave's base of one NaN-filled (B, total, 128)
+    buffer, against the plain version on each octave's region; every row
+    outside the regions (alignment gaps, later octaves) must stay NaN.
+    ``pack(d, strip, out, base)``: the launch, ``cube_pack_rows`` unless
+    given (scripts/ab_cube_pack.py passes an earlier version's)."""
+    import torch
+
+    from sift_tpu_torch.ops.cube_pack import cube_pack_rows
+    from sift_tpu_torch.ops.gather import cube_rows_plain
+
+    buf = torch.full((stacks[0].shape[0], total, 128), float("nan"), device=stacks[0].device)
+    inside = torch.zeros(total, dtype=torch.bool, device=buf.device)
+    err = 0.0
+    for o, (d, st, pb) in enumerate(zip(stacks, strips, bases)):
+        if pack is None:
+            cube_pack_rows(d, st, out=buf, base=pb)
+        else:
+            pack(d, st, buf, pb)
+        ref = cube_rows_plain(d, st)
+        err = max(err, same(buf[:, pb: pb + ref.shape[1]], ref,
+                            f"{what} octave {o}, NaN-filled buffer, vs plain"))
+        inside[pb: pb + ref.shape[1]] = True
+        del ref
+    need(bool(torch.isnan(buf[:, ~inside]).all()), f"{what}: a row outside the regions written")
+    return err
 
 
 def front_twin_bound(plan, bsz, hks):
@@ -1176,6 +1240,242 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
     return total
 
 
+def wide_frames(rows=None):
+    """Frames A and B of phase ``wide_fallback``: CAVE-01 scene frames 00-15
+    and 01-16 (tests/data/scene_oracle, the oracle-decoded pixels), each set
+    side by side, (2, 480, 10240, 3) uint8; ``rows``: only the first rows."""
+    import numpy as np
+
+    f = [np.load(DATA / "scene_oracle" / f"cave01_{i:02d}.npz")["input"][:rows]
+         for i in range(WIDE_FRAMES + 1)]
+    return np.stack([np.concatenate(f[:WIDE_FRAMES], 1), np.concatenate(f[1:], 1)])
+
+
+def wide_fallback_phase(dev, frames, zero_counts, read_counts, honest):
+    """Phase ``wide_fallback``: the two wide frames (``wide_frames``)
+    through the entry point, where the plan sends octave 0 (wider than
+    kernel F takes) through the fallback on its own: kernel A, the
+    ``twin_strided`` relayout and kernel G.  Gates: (1) the plan: octave 0
+    alone does not fit, at WIDE_PLAN0; (2) launches through
+    ``detect_and_describe_batch`` + ``match_descriptors``: A 1, G 1, F one
+    an octave after 0, D 1, B 1, C / E / H 0; (3) keypoints, descriptors,
+    stage counts and the match set bit-equal to the front route (kernel A
+    on every octave); (4) both gather buffers bit-equal to the same plan
+    with octave 0 forced through kernel F at its strip, and so the route's
+    outputs; (5) kernel G on the wide stack into a NaN-filled buffer
+    against its plain version, rows outside its region untouched; (6) the
+    path's other kernels against their plain versions on its inputs, bit
+    for bit: D on the doubled grey image, A on the initial image, F on
+    octaves 1-7 into the plan's buffers, B on the pair's descriptors (the
+    matcher's own outputs).  True stage counts must fit WIDE_CAPS.  Then
+    the entry point's and the front route's sweeps in turns, the fallback
+    octave's pieces by CUDA events, each beside its bound, and peak memory
+    (the path with gates 1-5; gate 6 with the timings).  Returns (the entry point's
+    launches, kernel G's numbers at the wide stack, gate 5 and 6's max
+    |kernel - plain| by kernel)."""
+    import torch
+
+    from sift_tpu_torch import SiftConfig, match_descriptors
+    from sift_tpu_torch.config import gaussian_half_kernel
+    from sift_tpu_torch.models import sift as S
+    from sift_tpu_torch.models.pyramid import blur_half_kernels, compute_initial_image
+    from sift_tpu_torch.ops.blur import separable_blur
+    from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
+    from sift_tpu_torch.ops.color import to_grayscale
+    from sift_tpu_torch.ops.cube_pack import cube_pack_rows
+    from sift_tpu_torch.ops.gather import cube_rows_plain, twin_strided
+    from sift_tpu_torch.ops.octave_front import (
+        front_twin_strip,
+        octave_front,
+        octave_front_plain,
+        octave_front_twin,
+        octave_front_twin_plain,
+    )
+    from sift_tpu_torch.ops.resize import downsample_nearest_x2, upsample_bilinear
+    from sift_tpu_torch.ops.top2 import top2_plain
+    from sift_tpu_torch.utils.keypoints import FIELDS
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SiftConfig(**WIDE_CAPS)
+    need(S.route_of(cfg, dev) == "front_twin", "wide frames: not the front-twin route")
+    imgs = S.as_batch(frames, cfg, dev)
+    octs = S.octaves_for(imgs, cfg)
+    h0, w0 = 2 * imgs.shape[1], 2 * imgs.shape[2]
+
+    # Gate 1: the plan the entry point takes.
+    plan = S.front_twin_plan(cfg, octs, h0, w0)
+    fits = [o[3] for o in plan.octaves]
+    need(fits == [False] + [True] * (octs - 1), f"wide plan: octaves that fit {fits}")
+    st0, pb0 = plan.octaves[0][2], plan.pk_bases[0]
+    need((st0, plan.pk_nbps[0]) == WIDE_PLAN0,
+         f"wide plan octave 0: strip {st0}, {plan.pk_nbps[0]} packed blocks")
+
+    def match(kp):
+        return match_descriptors(kp.desc[0:1], kp.valid[0:1], kp.desc[1:2], kp.valid[1:2],
+                                 cfg.ratio_threshold, device=dev)
+
+    # Gate 2: the entry point and the matcher, counted.
+    zero_counts()
+    kp, counts = S.detect_and_describe_batch(imgs, cfg, return_counts=True, device=dev)
+    idx, acc, best, second = match(kp)
+    launches = read_counts()
+    want = dict(octave_front=1, cube_pack=1, octave_front_twin=octs - 1, blur_pass=1, top2=1,
+                octave_blur=0, twin_rows=0, twin_rows_2d=0)
+    need({k: launches[k] for k in want} == want, f"wide_fallback: launches {launches}, want {want}")
+    honest(kp, counts, "wide frames", cfg)
+    nkp = kp.valid.sum(1).tolist()
+    need(min(nkp) > 0 and int(acc.sum()) > 0, f"wide frames: {nkp} keypoints, "
+         f"{int(acc.sum())} matches")
+
+    # Gate 3: the front route on the same frames.
+    kf, cf = S.run_route(imgs, cfg, "front")
+    idx_f, acc_f, _, _ = match(kf)
+    for f in FIELDS:
+        same(getattr(kp, f), getattr(kf, f), f"wide frames {f}: entry point vs front route")
+    for k in counts:
+        same(torch.as_tensor(counts[k]), torch.as_tensor(cf[k]),
+             f"wide frames count {k}: entry point vs front route")
+    same(acc, acc_f, "wide frames: accepted matches vs front route")
+    same(idx[acc], idx_f[acc_f], "wide frames: match set vs front route")
+    del kf, cf, idx_f, acc_f
+
+    # Gate 4: octave 0 through kernel F at the same strip; the plan's
+    # numbers, so the layout, are the same.
+    fplan = S.front_twin_plan(
+        cfg, octs, h0, w0,
+        strip_fn=lambda shape, *a: st0 if tuple(shape) == (h0, w0) else front_twin_strip(shape, *a))
+    need([o[3] for o in fplan.octaves] == [True] * octs
+         and [o[:3] + o[4:] for o in fplan.octaves] == [o[:3] + o[4:] for o in plan.octaves]
+         and (fplan.g_total, fplan.unit, fplan.pk_bases, fplan.pk_total)
+         == (plan.g_total, plan.unit, plan.pk_bases, plan.pk_total),
+         "wide plan with octave 0 through kernel F: another layout")
+    ga, da, ma, ca = S.front_twin(imgs, cfg)
+    gf, df, mf, cf_ = S.front_twin(imgs, cfg, fplan)
+    same(ga.rows, gf.rows, "wide gauss twin rows: fallback octave 0 vs kernel F at its strip")
+    same(da.rows, df.rows, "wide packed DoG rows: fallback octave 0 vs kernel F at its strip")
+    for o in range(octs):
+        same(ma[o], mf[o], f"wide octave {o} mask: fallback vs kernel F")
+        same(ca[o], cf_[o], f"wide octave {o} counts: fallback vs kernel F")
+    del ga, da, ma, ca, gf, df, mf, cf_
+    zero_counts()
+    kF, cF = S.run_route(imgs, cfg, "front_twin", fplan)
+    f_launches = read_counts()
+    need((f_launches["octave_front_twin"], f_launches["octave_front"], f_launches["cube_pack"])
+         == (octs, 0, 0), f"wide frames through kernel F: launches {f_launches}")
+    for f in FIELDS:
+        same(getattr(kp, f), getattr(kF, f), f"wide frames {f}: fallback vs kernel F")
+    for k in counts:
+        same(torch.as_tensor(counts[k]), torch.as_tensor(cF[k]), f"wide count {k}: vs kernel F")
+    del kF, cF
+
+    # Gate 5: kernel G alone on the wide stack, NaN-filled buffer.
+    hks = blur_half_kernels(cfg)
+    thr = cfg.extremum_threshold()
+    initial = compute_initial_image(imgs, cfg)
+    g0, d0, m0, c0 = octave_front(initial, hks, thr)
+    d_shape = list(d0.shape)
+    g_err = check_cube_launch([d0], [st0], [pb0], plan.pk_total, "kernel G wide stack")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # Gate 6: the path's other launches against their plain versions on the
+    # same inputs.  B's plain version runs 4,096 rows of the first image's
+    # descriptors at a time (rows are independent), so its (N, M) distance
+    # matrices stay small.
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+    pre = gaussian_half_kernel(math.sqrt(cfg.init_sigma * cfg.init_sigma - 1))
+    gray = upsample_bilinear(to_grayscale(imgs).to(cfg.dtype), 2, 2).contiguous()
+    d_k = separable_blur_kernel(gray, pre)
+    errs["blur_pass"] = same(d_k, separable_blur(gray, pre), "kernel D wide initial vs plain")
+    same(d_k, initial, "kernel D wide initial vs the path's seed")
+    del gray, d_k
+    errs["octave_front"] = max(
+        same(a, b, f"kernel A wide octave 0 {name} vs plain") for name, a, b in
+        zip(("gauss", "dog", "mask", "counts"), (g0, d0, m0, c0),
+            octave_front_plain(initial, hks, thr)))
+    del m0, c0
+    bufs = [(torch.zeros((imgs.shape[0], plan.g_total, 2 * plan.blk), device=dev),
+             torch.zeros((imgs.shape[0], plan.pk_total, 128), device=dev)) for _ in range(2)]
+    seed, f_err = downsample_nearest_x2(g0[:, g0.shape[1] - 3]).contiguous(), 0.0
+    for o in range(1, octs):
+        (_, _, st, _, _, gb), pkb = plan.octaves[o], plan.pk_bases[o]
+        got, ref = [fn(seed, hks, thr, gbuf, gb, st, plan.blk, plan.g_l0, plan.g_nl, pkbuf, pkb)
+                    for fn, (gbuf, pkbuf) in zip((octave_front_twin, octave_front_twin_plain),
+                                                 bufs)]
+        for name, a, b in zip(("mask", "counts", "down"), got, ref):
+            f_err = max(f_err, same(a, b, f"kernel F wide octave {o} {name} vs plain"))
+        seed = downsample_nearest_x2(got[2]).contiguous()
+    f_err = max(f_err, same(bufs[0][0], bufs[1][0], "kernel F wide gauss twin rows vs plain"),
+                same(bufs[0][1], bufs[1][1], "kernel F wide cube-packed rows vs plain"))
+    errs["octave_front_twin"] = f_err
+    del bufs, seed, got, ref
+    x1, x2, v2 = kp.desc[0:1], kp.desc[1:2], kp.valid[1:2]
+    ref = [torch.cat(part, 1) for part in zip(*(top2_plain(x1[:, i: i + 4096], x2, v2)
+                                                for i in range(0, x1.shape[1], 4096)))]
+    errs["top2"] = max(same(a[0], b[0], f"kernel B wide descriptors {name} vs plain")
+                       for name, a, b in zip(("best", "second", "idx"),
+                                             (best, second, idx), ref))
+    del ref
+    errs["cube_pack"] = g_err
+
+    # The sweeps in turns (entry point, front, front, entry point).
+    def sweep(route):
+        out = (S.detect_and_describe_batch(imgs, cfg, device=dev) if route is None
+               else S.run_route(imgs, cfg, route)[0])
+        match(out)
+
+    turns = [host_ms(lambda r=r: sweep(r), WIDE_SWEEPS) for r in (None, "front", "front", None)]
+
+    # The fallback octave's pieces, each beside its byte bound.
+    a_ms = cuda_ms(lambda: octave_front(initial, hks, thr), 5)
+    gbase = plan.octaves[0][5]
+    grows = torch.zeros((imgs.shape[0], plan.g_total, 2 * plan.blk), device=dev)
+    gt_rows = twin_strided(g0, plan.blk, st0, plan.g_l0, plan.g_nl).shape[1]
+
+    def relayout():
+        grows[:, gbase: gbase + gt_rows] = twin_strided(g0, plan.blk, st0, plan.g_l0, plan.g_nl)
+
+    ts_ms = cuda_ms(relayout, 5)
+    pk = torch.zeros((imgs.shape[0], plan.pk_total, 128), device=dev)
+    g_ms = cuda_ms(lambda: cube_pack_rows(d0, st0, out=pk, base=pb0), KERNEL_REPS)
+    g_plain_ms = cuda_ms(lambda: cube_rows_plain(d0, st0), 3)
+    dp = cube_padded(d0, st0)
+    lib = torch.zeros_like(pk)
+    same(library_cube(dp, st0, lib, pb0), pk, "kernel G's library yardstick vs the kernel, wide")
+    del lib
+    g_lib_ms = cuda_ms(lambda: library_cube(dp, st0, pk, pb0), KERNEL_REPS)
+    n_rows = -(-h0 // st0) * st0 * plan.pk_nbps[0]
+    g_bound = bound(*twin_bound(d0.numel(), imgs.shape[0] * n_rows * 128))
+    ts_bound = twin_bound(imgs.shape[0] * plan.g_nl * h0 * w0,
+                          imgs.shape[0] * gt_rows * 2 * plan.blk)
+    a_bound = bound(*octave_bound([(h0, w0)], imgs.shape[0], hks, mask=True))
+    peak_after = torch.cuda.max_memory_allocated() / 2**30
+    emit(dict(phase="wide_fallback", frames_hw=list(imgs.shape[1:3]), doubled_hw=[h0, w0],
+              octaves=octs, batch=int(imgs.shape[0]), caps=WIDE_CAPS,
+              octave0=dict(strip=st0, packed_blocks=plan.pk_nbps[0], fits=False),
+              strips=[o[2] for o in plan.octaves], keypoints=nkp, matches=int(acc.sum()),
+              counts={k: v.tolist() for k, v in counts.items()}, launches=launches,
+              equal_to_front_route=True, buffers_equal_to_kernel_f=True,
+              route_equal_to_kernel_f=True, kernel_f_launches=f_launches,
+              kernel_g_nan_filled_bit_equal=True, kernels_vs_plain_bit_equal=True,
+              max_abs_err=errs, top2_shape=[int(x1.shape[1]), int(x2.shape[1])],
+              sweep_ms_turns=dict(entry_point=[turns[0], turns[3]], front_route=turns[1:3]),
+              sweeps_per_turn=WIDE_SWEEPS,
+              fallback_octave_ms=dict(
+                  octave_front=a_ms, octave_front_bound=a_bound[0],
+                  twin_strided_and_copy=ts_ms, twin_strided_and_copy_bound=ts_bound[0],
+                  cube_pack=g_ms, cube_pack_bound=g_bound[0]),
+              cube_pack_plain_ms=g_plain_ms, cube_pack_library_ms=g_lib_ms,
+              peak_mem_gib=max(peak, peak_after), peak_mem_gib_path_and_gates_1_5=peak,
+              peak_mem_gib_gate_6_and_timings=peak_after, phase_s=time.perf_counter() - t_phase))
+    del imgs, initial, g0, d0, grows, pk, dp
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return launches, dict(ms=g_ms, plain_ms=g_plain_ms, library_ms=g_lib_ms, bound_ms=g_bound[0],
+                          bound_by=g_bound[1], shape=d_shape), errs
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import numpy as np
@@ -1512,11 +1812,13 @@ def main() -> int:
         g_out += alone.numel()
         del alone
     torch.cuda.synchronize()
-    g_err = max(g_err, same(pkg, pkk, "kernel G's buffer vs kernel F's"))
+    g_err = max(g_err, same(pkg, pkk, "kernel G's buffer vs kernel F's"),
+                check_cube_launch(a_dogs, [a[1] for a in g_args], plan.pk_bases, plan.pk_total,
+                                  "kernel G batch"))
     g_times = twin_bound(g_in, g_out)
     emit(dict(phase="kernel_g_vs_plain", batch=BATCH, strips=[a[1] for a in g_args],
               floats_in=g_in, floats_out=g_out, bit_equal_to_plain=True,
-              bit_equal_to_kernel_f=True, max_abs_err=g_err,
+              bit_equal_to_kernel_f=True, nan_filled_buffer=True, max_abs_err=g_err,
               bytes_ms=g_times[0], ops_ms=g_times[1]))
     del dcr
 
@@ -1678,6 +1980,11 @@ def main() -> int:
               equal_to_main_path=True, launches=launches["fallback"]))
     del kb, cb
 
+    # -- phase 5b: wide frames through the entry point, octave 0 through the
+    # fallback on its own (kernels A and G), counted ---------------------------
+    launches["wide"], g_wide, wide_err = wide_fallback_phase(dev, wide_frames(), zero_counts,
+                                                             read_counts, honest)
+
     # -- phase 6: the staged path, frame by frame, counted -------------------
     def staged_overflow(st, c):
         cnt, out = st["counts"], []
@@ -1807,6 +2114,11 @@ def main() -> int:
         for name, stacks in (("gauss", dgs), ("dog", dds)):
             e_err = max(e_err, check_twin_launch(stacks, blk, f"kernel E demo {name}"))
         h_err = max(h_err, check_rows_launch([v[0] for v in dgs + dds], blk, "kernel H demo"))
+    # Kernel G at the demo's DoG stacks (odd widths: its 4-byte staging), at
+    # the plan's strips and bases.
+    dplan = S.front_twin_plan(dcfg, doct, *dshapes[0])
+    g_err = max(g_err, check_cube_launch(dds, [o[2] for o in dplan.octaves], dplan.pk_bases,
+                                         dplan.pk_total, "kernel G demo"))
     del dgs, dds
 
     def demo_match(kp):
@@ -1831,7 +2143,6 @@ def main() -> int:
                             torch.ones((1, DEMO_KP[1]), dtype=torch.bool))
     racc = ratio_accept(rb, rs, torch.ones((1, DEMO_KP[0]), dtype=torch.bool))[0]
     need(int(racc.sum()) == DEMO_MATCHES, f"demo oracle match set has {int(racc.sum())}")
-    dplan = S.front_twin_plan(dcfg, doct, *dshapes[0])
     need([(o[0], o[1]) for o in dplan.octaves] == dshapes and all(o[3] for o in dplan.octaves),
          f"demo front-twin plan {dplan.octaves}")
     doff = {dshapes[0], dshapes[3]}
@@ -2259,15 +2570,6 @@ def main() -> int:
                               out.valid[1::2], cfg.ratio_threshold, device=dev)
         return out, m
 
-    def host_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / reps
-
     # The main path through its entry point and the front route through
     # ``run_route``, in turns (twin, front, front, twin), so that a drift of
     # the host's pace falls on both.
@@ -2482,12 +2784,13 @@ def main() -> int:
         dict(name="octave_front", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:240",
-             launches=launches["front"]["octave_front"], max_abs_err=worst,
+             launches=launches["front"]["octave_front"],
+             max_abs_err=max(worst, wide_err["octave_front"]),
              ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_by,
              library_ms=None, launches_by_path=by_path("octave_front")),
         dict(name="top2", route="cuda", source="sift_tpu_torch/csrc/top2.cu",
              replaces="sift_tpu/ops/pallas_match.py:90",
-             launches=launches["main"]["top2"], max_abs_err=float(b_err),
+             launches=launches["main"]["top2"], max_abs_err=float(max(b_err, wide_err["top2"])),
              ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by,
              library_ms=b_lib_ms, launches_by_path=by_path("top2"), device_ms=b_dev_ms,
              one_pair_1286x1430_ms=b_pair_ms, one_pair_1286x1430_device_ms=b_pair_dev_ms,
@@ -2495,7 +2798,9 @@ def main() -> int:
         # ``launches`` is the count on the path that brought the kernel in:
         # the main path (the front-twin route) for F, B and D, the front route
         # for A, the window-5 route for C and E (batch 16), the fallback run
-        # for G, the staged path for H; ``launches_by_path`` has them all.
+        # for G, the staged path for H; ``launches_by_path`` has them all
+        # (``wide``: phase ``wide_fallback``'s entry point, where G's
+        # ``wide_*`` numbers come from).
         # No single PyTorch call computes an octave (A, C, F): ``library_ms``
         # is null there.  E, G and H's yardstick is one ``copy_`` per octave
         # or volume from an overlapping ``as_strided`` view of the input,
@@ -2509,7 +2814,8 @@ def main() -> int:
              library_ms=None, launches_by_path=by_path("octave_blur")),
         dict(name="blur_pass", route="cuda", source="sift_tpu_torch/csrc/blur_pass.cu",
              replaces="sift_tpu/ops/pallas_blur.py:121",
-             launches=launches["main"]["blur_pass"], max_abs_err=d_err,
+             launches=launches["main"]["blur_pass"],
+             max_abs_err=max(d_err, wide_err["blur_pass"]),
              ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound, bound_by=d_by,
              library_ms=d_lib_ms, launches_by_path=by_path("blur_pass"),
              device_ms=d_dev_ms),
@@ -2526,14 +2832,19 @@ def main() -> int:
         dict(name="octave_front_twin", route="cuda",
              source="sift_tpu_torch/csrc/octave_front.cu",
              replaces="sift_tpu/ops/pallas_pyramid.py:513",
-             launches=launches["main"]["octave_front_twin"], max_abs_err=f_err,
+             launches=launches["main"]["octave_front_twin"],
+             max_abs_err=max(f_err, wide_err["octave_front_twin"]),
              ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_by,
              library_ms=None, launches_by_path=by_path("octave_front_twin")),
         dict(name="cube_pack", route="cuda", source="sift_tpu_torch/csrc/cube_pack.cu",
              replaces="sift_tpu/ops/pallas_relayout.py:195",
-             launches=launches["fallback"]["cube_pack"], max_abs_err=g_err,
+             launches=launches["fallback"]["cube_pack"],
+             max_abs_err=max(g_err, wide_err["cube_pack"]),
              ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound, bound_by=g_by,
-             library_ms=g_lib_ms, launches_by_path=by_path("cube_pack")),
+             library_ms=g_lib_ms, launches_by_path=by_path("cube_pack"),
+             wide_shape=g_wide["shape"], wide_ms=g_wide["ms"], wide_plain_ms=g_wide["plain_ms"],
+             wide_bound_ms=g_wide["bound_ms"], wide_bound_by=g_wide["bound_by"],
+             wide_library_ms=g_wide["library_ms"]),
         dict(name="twin_rows_2d", route="cuda", source="sift_tpu_torch/csrc/twin_rows.cu",
              replaces="sift_tpu/ops/pallas_relayout.py:29",
              launches=launches["staged"]["twin_rows_2d"], max_abs_err=h_err,

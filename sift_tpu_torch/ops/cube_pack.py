@@ -9,6 +9,12 @@ route's shared buffer at the octave's base row (the fallback octave of
 ``gather.cube_rows_plain`` (one unfold and a transpose).  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Pure data movement.
+
+``walk_plain`` is the kernel's schedule in plain numpy, unit by unit (ROWS
+image rows x a chunk of blocks, staged from the 4-aligned column below the
+chunk's first window, then written row by row), for the CPU tests; its
+constants and ``chunking`` mirror the ``.cu``'s.  Change the schedule
+there first.
 """
 
 from __future__ import annotations
@@ -16,10 +22,34 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from sift_tpu_torch import kernels
 from sift_tpu_torch.ops.gather import cube_rows_params, cube_rows_plain
+
+# csrc/cube_pack.cu: ROWS, THREADS, TILE_FLOATS.
+ROWS = 8
+THREADS = 256
+TILE_FLOATS = 12288
+
+
+def tile_width(nbc: int, stride: int) -> int:
+    """Staged floats per row of a unit of ``nbc`` blocks: the windows'
+    nbc * stride + 3 columns plus up to 3 of alignment shift, rounded up to
+    a multiple of 4 (the kernel's ``tile_width``)."""
+    return (nbc * stride + 6 + 3) & ~3
+
+
+def chunking(n: int, nbp: int, stride: int) -> tuple[int, int]:
+    """(nbc, nchunks): blocks a work unit takes, the most whose staged tile
+    (n * ROWS rows of ``tile_width``) fits TILE_FLOATS, balanced over the
+    chunks of a row (the kernel's ``chunking``)."""
+    most = 1
+    while most < nbp and n * ROWS * tile_width(most + 1, stride) <= TILE_FLOATS:
+        most += 1
+    nchunks = -(-nbp // most)
+    return -(-nbp // nchunks), nchunks
 
 
 def cube_pack_rows(d: torch.Tensor, strip: int = 64, out: torch.Tensor | None = None,
@@ -49,6 +79,8 @@ def cube_pack_rows(d: torch.Tensor, strip: int = 64, out: torch.Tensor | None = 
         raise ValueError(f"cube_pack_rows: unsupported device {d.device}")
     if d.dtype != torch.float32 or not d.is_contiguous():
         raise ValueError("cube_pack_rows: d must be contiguous float32")
+    if out.data_ptr() % 16:
+        raise ValueError("cube_pack_rows: out must be 16-byte aligned")
     with torch.cuda.device(d.device):
         err = _launcher()(d.data_ptr(), out.data_ptr(), b, s, h, w, strip.bit_length() - 1,
                           out.shape[1], base, torch.cuda.current_stream(d.device).cuda_stream)
@@ -58,6 +90,54 @@ def cube_pack_rows(d: torch.Tensor, strip: int = 64, out: torch.Tensor | None = 
 
 
 cube_pack_rows.launches = 0
+
+
+def walk_plain(d: torch.Tensor, strip: int, out: torch.Tensor, base: int) -> np.ndarray:
+    """The kernel's schedule in plain numpy: every work unit (chunk, row
+    group, image) stages its layers' ROWS rows over its chunk's columns from
+    the 4-aligned column at or below the first window's, zero outside [0, W)
+    and past H, and writes its packed rows into ``out`` (B, P, 128), a CPU
+    tensor, from row ``base``; rows past the strip-padded height are
+    skipped, lanes >= S * sw are zeros.  ``d``: a CPU tensor (B, S, H, W).
+    Returns how often each (image, row) of ``out`` was written."""
+    x = d.numpy()
+    o = out.numpy()
+    bsz, n, h, w = x.shape
+    stride, sw, nbp = cube_rows_params(n, w)
+    ls = strip.bit_length() - 1
+    hpad = -(-h // strip) * strip
+    nbc, nchunks = chunking(n, nbp, stride)
+    cw = tile_width(nbc, stride)
+    lane = np.arange(n * sw)
+    lz, lj = lane // sw, lane % sw  # each lane's layer and window column
+    writes = np.zeros(o.shape[:2], np.int64)
+    for bi in range(bsz):
+        for g in range(-(-hpad // ROWS)):
+            y0 = g * ROWS
+            for ch in range(nchunks):
+                cb0 = ch * nbc
+                nb = min(nbc, nbp - cb0)
+                c0 = cb0 * stride - 1
+                a0 = c0 & ~3 if c0 >= 0 else -4
+                shift = c0 - a0
+                ncols = (shift + nb * stride + 3 + 3) & ~3
+                assert ncols <= cw and n * ROWS * cw <= TILE_FLOATS
+                tile = np.zeros((n, ROWS, cw), o.dtype)
+                r1 = min(ROWS, h - y0)
+                lo, hi = max(a0, 0), min(a0 + ncols, w)
+                if r1 > 0 and hi > lo:
+                    tile[:, :r1, lo - a0: hi - a0] = x[bi, :, y0: y0 + r1, lo:hi]
+                for r in range(ROWS):
+                    y = y0 + r
+                    if y >= hpad:
+                        continue
+                    cb = cb0 + np.arange(nb)
+                    rows = base + ((((y >> ls) * nbp + cb) << ls) + (y & (strip - 1)))
+                    vals = np.zeros((nb, 128), o.dtype)
+                    vals[:, : n * sw] = tile[lz, r, shift + lj + (cb - cb0)[:, None] * stride]
+                    o[bi, rows] = vals
+                    writes[bi, rows] += 1
+    return writes
 
 
 @functools.cache

@@ -13,7 +13,8 @@ rank, joined by ``torch.distributed``:
     hang deep in a collective.
   - ``spawn(fn, nprocs, ...)``: run ``fn`` on ``nprocs`` new processes of
     one group on this host (the simulated fleet; on one card the ranks
-    share it through gloo) and return each rank's result.  ``run_steps``
+    share it through gloo) and return each rank's result; on the card
+    unless the caller passes ``device="cpu"``.  ``run_steps``
     runs a list of calls on every rank through ``spawn``, with the meshes
     built in each rank, and reports each call's result, seconds, kernel
     launches and peak device memory per rank.
@@ -84,19 +85,20 @@ def fleet_barrier() -> int:
     return int(one.item())
 
 
-def spawn(fn: Callable, nprocs: int, args: tuple = (), device="cpu",
+def spawn(fn: Callable, nprocs: int, args: tuple = (), device="cuda",
           backend: str | None = None) -> list:
     """``fn(*args)`` on ranks 0 .. nprocs-1 of a new process group, each a
     new process of this host; returns the ranks' results in rank order.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path, so it lives
     in a module that a fresh interpreter imports) and so is each result.
-    ``device``: ``"cpu"`` (each rank uses one CPU thread) or ``"cuda"``
-    (rank r on card r mod the card count; the kernels are built here first,
-    so the ranks only load them).  ``backend``: NCCL for CUDA, gloo for the
-    CPU; ranks that share one card need gloo, since NCCL takes one rank per
-    card.  A rank that fails fails the call: no rank falls back to another
-    device or backend.
+    ``device``: ``"cuda"``, the default (rank r on card r mod the card
+    count; the kernels are built here first, so the ranks only load them),
+    or ``"cpu"`` (each rank uses one CPU thread); without a card the default
+    raises before any rank is spawned, as every entry point does.
+    ``backend``: NCCL for CUDA, gloo for the CPU; ranks that share one card
+    need gloo, since NCCL takes one rank per card.  A rank that fails fails
+    the call: no rank falls back to another device or backend.
     """
     from sift_tpu_torch import kernels
     from sift_tpu_torch.utils.numerics import resolve_device
@@ -214,10 +216,11 @@ def to_host(x):
     return x
 
 
-def run_steps(steps: list[Step], nprocs: int, device="cpu", backend: str | None = None):
-    """Run ``steps`` in order on ``nprocs`` spawned ranks (``spawn``);
-    returns, per rank, a list with a ``StepResult`` per step (None where the
-    rank was outside the step's mesh)."""
+def run_steps(steps: list[Step], nprocs: int, device="cuda", backend: str | None = None):
+    """Run ``steps`` in order on ``nprocs`` spawned ranks (``spawn``, on the
+    card unless ``device="cpu"``); returns, per rank, a list with a
+    ``StepResult`` per step (None where the rank was outside the step's
+    mesh)."""
     from sift_tpu_torch.utils.numerics import resolve_device
 
     device_type = resolve_device(device).type

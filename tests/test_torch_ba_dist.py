@@ -76,7 +76,7 @@ def ranks():
         steps.append(Step(sharded_ba_step, (sp64, 1e-3, mesh)))
         where["solve", n] = len(steps)
         steps.append(Step(sharded_ba_solve, (port_problem(n, torch.float32), mesh), dict(iters=12)))
-    return where, run_steps(steps, RANKS)
+    return where, run_steps(steps, RANKS, device="cpu")
 
 
 @pytest.mark.parametrize("n_shards", SHARDS)

@@ -7,6 +7,9 @@ none."""
 
 from __future__ import annotations
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import torch
 
 from sift_tpu.ops import gather as JG
 from sift_tpu.ops.pallas_relayout import cube_pack_rows as jax_cube_pack_rows
+from sift_tpu_torch.ops import cube_pack as CP
 from sift_tpu_torch.ops.cube_pack import cube_pack_rows
 from sift_tpu_torch.ops.gather import (
     CubeRows,
@@ -154,3 +158,75 @@ def test_gather_cubes_clamps_positions_like_the_stacks():
     zyx = torch.from_numpy(np.stack([rng.integers(-1, 7, n), rng.integers(-3, 60, n),
                                      rng.integers(-3, 1400, n)], -1))
     assert torch.equal(gather_cubes(mine, img, oct_id, zyx), gather_cubes(stacks, img, oct_id, zyx))
+
+
+# Kernel G's schedule (ops/cube_pack.walk_plain): (B, S, H, W), strip, and
+# the octave's base in units of nbp * strip rows.  S 4, 5 and 6 (sw 32, 25,
+# 21); widths 23 (one block), 69 (the extra last block), 150, 755 (odd: the
+# kernel's 4-byte staging) and 20,480 (72 chunks of 13 blocks, the wide
+# fallback octave's width at 9 rows); H not a multiple of the strip; strips
+# of 1 row (units span strips) up to 128 (past H by more than a unit).
+WALK_CASES = {
+    "s5_w69_st8": ((2, 5, 37, 69), 8, 1),
+    "s4_w23_st1": ((2, 4, 13, 23), 1, 2),
+    "s6_w150_st64": ((2, 6, 20, 150), 64, 1),
+    "s5_w755_st128": ((1, 5, 70, 755), 128, 2),
+    "s4_w755_st8": ((1, 4, 33, 755), 8, 0),
+    "s6_w69_st1": ((2, 6, 9, 69), 1, 3),
+    "s5_w150_st1": ((1, 5, 21, 150), 1, 1),
+    "s6_w23_st128": ((2, 6, 5, 23), 128, 1),
+    "s5_w20480_st128": ((1, 5, 9, 20480), 128, 1),
+    "s4_w20480_st8": ((1, 4, 9, 20480), 8, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_walk_plain_writes_each_row_of_its_region_once(case):
+    """Kernel G's schedule into a NaN-filled shared buffer at an in-place
+    base: every row of the octave's region written exactly once, no row
+    outside it, and the region equal to cube_rows_plain, to the JAX
+    package's cube_rows_xla, and on the rows of image rows < H to the Pallas
+    kernel in interpret mode (below nbp 100: it unrolls its blocks).
+    Tolerance: none."""
+    shape, strip, units = WALK_CASES[case]
+    d = _dog(shape, seed=7)
+    b, s, h, w = shape
+    _, _, nbp = cube_rows_params(s, w)
+    want = cube_rows_plain(torch.from_numpy(d), strip)
+    n = want.shape[1]
+    base = units * nbp * strip
+    out = torch.full((b, base + n + nbp * strip, 128), float("nan"))
+    writes = CP.walk_plain(torch.from_numpy(d), strip, out, base)
+    assert (writes[:, base: base + n] == 1).all()
+    assert not writes[:, :base].any() and not writes[:, base + n:].any()
+    assert torch.isnan(out[:, :base]).all() and torch.isnan(out[:, base + n:]).all()
+    got = out[:, base: base + n].numpy()
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got, np.asarray(JG.cube_rows_xla(jnp.asarray(d), strip)))
+    if nbp < 100:
+        row = np.arange(n)
+        y = (row // strip // nbp) * strip + row % strip
+        pallas = np.asarray(jax_cube_pack_rows(jnp.asarray(d), strip, interpret=True))
+        np.testing.assert_array_equal(got[:, y < h], pallas[:, y < h])
+
+
+def test_schedule_constants_mirror_the_kernel():
+    """The constants walk_plain and ``chunking`` use are the kernel
+    source's; every unit's staged tile fits TILE_FLOATS (the kernel's
+    shared memory), the chunks cover the blocks and none is empty, and one
+    warp writes each of a unit's rows."""
+    src = (pathlib.Path(CP.__file__).parent.parent / "csrc" / "cube_pack.cu").read_text()
+    for name in ("ROWS", "THREADS", "TILE_FLOATS"):
+        assert re.search(rf"^#define {name} (\d+)", src, re.M).group(1) == str(getattr(CP, name))
+    assert CP.THREADS // 32 == CP.ROWS
+    for n in range(1, 33):
+        stride, _, _ = cube_rows_params(n, 1)
+        if stride < 1:
+            continue
+        for w in (3, 23, 69, 150, 755, 1280, 20480, 40000):
+            nbp = cube_rows_params(n, w)[2]
+            nbc, nchunks = CP.chunking(n, nbp, stride)
+            assert n * CP.ROWS * CP.tile_width(nbc, stride) <= CP.TILE_FLOATS
+            assert (nchunks - 1) * nbc < nbp <= nchunks * nbc
+    # The wide fallback octave's chunks: 13 blocks of 22 columns, 72 a row.
+    assert CP.chunking(5, 931, 22) == (13, 72)

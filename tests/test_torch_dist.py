@@ -87,7 +87,7 @@ def ranks():
                                       np.stack([d2, d2]), np.stack([v2, ~v2]), MeshSpec(1, 4))))
     where["detect"] = len(steps)
     steps.append(Step(batched_detect, (frames(), CFG, OCTAVES, MeshSpec(2, 2))))
-    return where, run_steps(steps, RANKS)
+    return where, run_steps(steps, RANKS, device="cpu")
 
 
 @functools.cache

@@ -61,7 +61,7 @@ def ranks(tmp_path_factory):
                                MeshSpec(1, 4))),
         Step(sharded_ba_step, (shard_ba_problem(*ba_args(2), device="cpu")[0], 1e-3, SURVIVORS)),
     ]
-    return state, run_steps(steps, RANKS)
+    return state, run_steps(steps, RANKS, device="cpu")
 
 
 def test_match_survives_rank_loss(ranks):

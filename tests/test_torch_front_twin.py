@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from sift_tpu import SiftConfig as JaxConfig
 from sift_tpu.config import gaussian_half_kernel
 from sift_tpu.models import sift as JS
@@ -87,6 +89,22 @@ def test_front_twin_plan_equals_jax(monkeypatch, h1, w1, octaves, fallback):
     assert (got.unit, got.g_total) == (u, -(-g_total // (8 * u)) * (8 * u))
     assert (got.g_l0, got.g_nl, got.blk) == (g_l0, g_nl, blk)
     assert got.pk_nbps == tuple(cube_rows_params(n, p[1])[2] for p in plan)
+
+
+@pytest.mark.parametrize("h1,octaves", [(960, 8), (48, 4)])
+def test_front_twin_plan_of_wide_frames_equals_jax(h1, octaves):
+    """Initial images 20,480 columns wide (16 frames of 640 side by side,
+    doubled), nothing forced: the plan is _front_twin_plan's, and octave 0,
+    alone, does not fit kernel F: the entry point sends it through the
+    fallback, at strip 128 with 931 packed blocks at 960 rows."""
+    plan, g_total, _, _, _, n, _ = JS._front_twin_plan(JCFG, octaves, h1, 20480)
+    got = S.front_twin_plan(SiftConfig(), octaves, h1, 20480)
+    assert list(got.octaves) == plan
+    assert [o[3] for o in got.octaves] == [False] + [True] * (octaves - 1)
+    assert got.g_total == -(-g_total // (8 * got.unit)) * (8 * got.unit)
+    assert got.pk_nbps == tuple(cube_rows_params(n, p[1])[2] for p in plan)
+    if h1 == 960:
+        assert (got.octaves[0][2], got.pk_nbps[0]) == (128, 931)
 
 
 def test_front_twin_plan_at_the_bench_size():
@@ -305,25 +323,48 @@ def test_front_twin_buffers_against_the_jax_route(small_batch):
                                    rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("fallback", [(), (64,), (128, 16)], ids=["fused", "one", "two"])
-def test_front_twin_route_equals_the_other_routes(small_batch, fallback):
+@pytest.fixture(scope="module")
+def wide_rows():
+    """Rows 0-23 of chip_smoke.py's two wide frames: CAVE-01 scene frames
+    00-15 and 01-16, each set side by side (24 x 10,240, doubled to 48 x
+    20,480)."""
+    return chip_smoke.wide_frames(24)
+
+
+WIDE_CAPS = dict(extrema_cap=8192, kp_cap=2048, ori_cap=4096)
+
+
+@pytest.mark.parametrize("fallback", [(), (64,), (128, 16), "wide"],
+                         ids=["fused", "one", "two", "wide"])
+def test_front_twin_route_equals_the_other_routes(small_batch, wide_rows, fallback):
     """float32 through the knob on the CPU: the entry point takes the
     front-twin route, and its final buffer and counts are, bit for bit, the
     front route's and the plain-stack route's; the same with octaves forced
     through the fallback (kernel A's values, twin_strided, kernel G's
-    rows).  Tolerance: none."""
-    cfg = SiftConfig(use_octave_kernel=True, **CAPS)
+    rows), and ("wide") with the fallback the entry point takes on its own
+    for an octave wider than 19,328 columns (the wide frames' octave 0;
+    capacities that clip nothing).  Tolerance: none."""
+    wide = fallback == "wide"
+    cfg = SiftConfig(use_octave_kernel=True, **(WIDE_CAPS if wide else CAPS))
     assert S.route_of(cfg, "cpu") == "front_twin"
-    imgs = S.as_batch(small_batch, cfg, "cpu")
+    frames = wide_rows if wide else small_batch
+    imgs = S.as_batch(frames, cfg, "cpu")
     plan = None
-    if fallback:
+    if wide:
+        natural = S.front_twin_plan(cfg, S.octaves_for(imgs, cfg), 48, 20480)
+        assert [o[3] for o in natural.octaves] == [False, True, True, True]
+    elif fallback:
         plan = S.front_twin_plan(cfg, S.octaves_for(imgs, cfg), 128, 192,
                                  _no_fit(fallback, front_twin_strip))
         assert [o[3] for o in plan.octaves].count(False) == len(fallback)
     got, counts = S.run_route(imgs, cfg, "front_twin", plan)
     assert int(got.valid.sum()) > 0
-    if not fallback:
-        entry = detect_and_describe_batch(small_batch, cfg, device="cpu")
+    if wide:
+        assert int(counts["extrema"].max()) <= cfg.extrema_cap
+        assert int(counts["refined"].max()) <= cfg.kp_cap
+        assert int(counts["oriented"].max()) <= cfg.ori_cap
+    if plan is None:
+        entry = detect_and_describe_batch(frames, cfg, device="cpu")
         for f in FIELDS:
             assert torch.equal(getattr(entry, f), getattr(got, f)), f
     for route in ("front", "stacks"):
@@ -332,3 +373,80 @@ def test_front_twin_route_equals_the_other_routes(small_batch, fallback):
             assert torch.equal(getattr(got, f), getattr(want, f)), (route, f)
         for k in counts:
             assert torch.equal(torch.as_tensor(counts[k]), torch.as_tensor(wcounts[k])), (route, k)
+
+
+def test_wide_fallback_buffers_equal_kernel_f_at_its_strip(wide_rows):
+    """The wide frames' octave 0 through the fallback (kernel A's values,
+    twin_strided, kernel G's rows) fills both gather buffers exactly as
+    kernel F does with the same plan forced to fit at strip 128 (the same
+    layout: F tiles columns, so width is no limit to it); plain versions
+    here, the kernels on the card in chip_smoke.py.  Tolerance: none."""
+    cfg = SiftConfig(use_octave_kernel=True, **WIDE_CAPS)
+    imgs = S.as_batch(wide_rows, cfg, "cpu")
+    natural = S.front_twin_plan(cfg, 4, 48, 20480)
+    fused = S.front_twin_plan(
+        cfg, 4, 48, 20480,
+        lambda shape, *a: natural.octaves[0][2] if tuple(shape) == (48, 20480)
+        else front_twin_strip(shape, *a))
+    assert [o[3] for o in fused.octaves] == [True] * 4
+    assert [o[:3] + o[4:] for o in fused.octaves] == [o[:3] + o[4:] for o in natural.octaves]
+    assert (fused.g_total, fused.pk_bases, fused.pk_total) == (
+        natural.g_total, natural.pk_bases, natural.pk_total)
+    g_a, d_a, m_a, c_a = S.front_twin(imgs, cfg, natural)
+    g_f, d_f, m_f, c_f = S.front_twin(imgs, cfg, fused)
+    assert torch.equal(g_a.rows, g_f.rows) and torch.equal(d_a.rows, d_f.rows)
+    for a, b in zip(m_a + c_a, m_f + c_f):
+        assert torch.equal(a, b)
+
+
+def test_wide_fallback_buffers_against_the_jax_fallback(wide_rows):
+    """The entry point's natural route on the wide crop (octave 0 through
+    the fallback on its own) against the JAX package's fallback on the same
+    frames: its initial image, then per octave ``octave_front_xla``,
+    ``twin_strided_xla`` and the plain reference of its Pallas
+    ``cube_pack_rows`` (``cube_rows_xla``, bit-equal to it on in-image rows;
+    the Pallas kernel itself is held against it at 9 x 20,480 in
+    test_torch_cube_rows.py), written at the bases of JAX's own plan, and
+    ``downsample_nearest_x2_mxu`` for the next seed.  JAX's route takes that
+    fallback for octave 0 and documents it as the same layout as its kernel
+    for the others.  Run op by op (not jitted: XLA's fusions round
+    differently), the JAX functions do the port's float32 operations in the
+    port's order, so at every indexed position of every octave both gather
+    buffers, and every mask and count, are equal.  Tolerance: none."""
+    from sift_tpu.models.detect import octave_front_xla
+    from sift_tpu.models.pyramid import compute_initial_image as j_initial
+    from sift_tpu.ops.pallas_pyramid import twin_strided_xla
+    from sift_tpu.ops.resize import downsample_nearest_x2_mxu
+
+    cfg = SiftConfig(use_octave_kernel=True, **WIDE_CAPS)
+    imgs = S.as_batch(wide_rows, cfg, "cpu")
+    octaves = S.octaves_for(imgs, cfg)
+    gmr, dcr, masks, counts = S.front_twin(imgs, cfg)
+    jcfg = JaxConfig(dtype=jnp.float32, **WIDE_CAPS)
+    plan, _, hks, g_l0, g_nl, _, blk = JS._front_twin_plan(jcfg, octaves, 48, 20480)
+    assert [p[3] for p in plan] == [False, True, True, True]
+    assert (g_l0, g_nl, blk) == (G_L0, G_NL, BLK)
+    jgrows = np.zeros(tuple(gmr.rows.shape), np.float32)
+    jpk = np.zeros(tuple(dcr.rows.shape), np.float32)
+    img = j_initial(jnp.asarray(wide_rows.astype(np.float32)), jcfg)
+    for o, ((h, w, st, _, _, gbase), pkbase) in enumerate(zip(plan, dcr.bases)):
+        g, d, m, c = octave_front_xla(img, hks, jcfg.extremum_threshold(), jcfg.window_size)
+        gt = np.asarray(twin_strided_xla(g, blk, st, g_l0, g_nl))
+        jgrows[:, gbase: gbase + gt.shape[1]] = gt
+        pk = np.asarray(JG.cube_rows_xla(d, st))
+        jpk[:, pkbase: pkbase + pk.shape[1]] = pk
+        np.testing.assert_array_equal(masks[o][..., :w].numpy(), np.asarray(m)[..., :w])
+        np.testing.assert_array_equal(counts[o].numpy(), np.asarray(c))
+        img = downsample_nearest_x2_mxu(g[:, g.shape[1] - 3])
+    jg = dataclasses.replace(gmr, rows=torch.from_numpy(jgrows))
+    jd = dataclasses.replace(dcr, rows=torch.from_numpy(jpk))
+    for o in range(octaves):
+        _, h, w = gmr.shapes[o]
+        bi, s, y, x = _all_positions(2, range(G_L0, G_L0 + G_NL), h, w)
+        oc = torch.full_like(bi, o)
+        at = gmr.index(bi, oc, s, y, x, x)
+        assert torch.equal(gmr.flat[at], jg.flat[at]), o
+        bi, s, y, x = _all_positions(2, range(len(HKS)), h, w)
+        oc = torch.full_like(bi, o)
+        at = dcr.index(bi, oc, s, y, x, (x - 1).clamp_min(0))
+        assert torch.equal(dcr.flat[at], jd.flat[at]), o

@@ -32,7 +32,13 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+# The port's scripts that run on the card beside chip_smoke.py.
+PORT_SCRIPTS = ["ab_blur_top2.py", "ab_cube_pack.py", "ab_twin_rows.py", "tune_octave_front.py",
+                "torch_parallel_match.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + [ROOT / "scripts" / name for name in PORT_SCRIPTS],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_sift_tpu_imports(path):
     for mod in _imported_modules(path):

@@ -57,7 +57,7 @@ def ranks():
         Step(M.all_reduce, (torch.full((2,), 0.5), square, "data")),
         Step(M.all_gather, (torch.tensor([7], dtype=torch.uint8), pair, "kp")),
     ]
-    return run_steps(steps, RANKS)
+    return run_steps(steps, RANKS, device="cpu")
 
 
 def test_initialize_without_settings_is_a_noop(no_launcher_env):
@@ -146,3 +146,22 @@ def test_a_mesh_of_some_ranks(ranks):
     for r in ranks[2:]:
         assert torch.equal(r[11].out, torch.tensor([[7], [7]], dtype=torch.uint8))
         assert r[11].launches["top2"] == 0 and r[11].peak_bytes == 0
+
+
+@pytest.mark.parametrize("call", ["spawn", "run_steps"])
+def test_rank_launchers_run_on_the_card_unless_asked(monkeypatch, call):
+    """``spawn`` and ``run_steps`` take the card by default, as every entry
+    point does: without one they raise the no-CUDA error before any rank is
+    started."""
+    import inspect
+
+    launcher = getattr(MH, call)
+    assert inspect.signature(launcher).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **k: started.append(a))
+    arg = MH.fleet_barrier if call == "spawn" else [Step(MH.fleet_barrier)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher(arg, RANKS)
+    assert not started

@@ -54,7 +54,7 @@ def ranks():
     img = quarter()
     steps = [Step(spatial_detect_and_describe, (img.astype(np.float64), F64, MeshSpec(4, 1))),
              Step(spatial_detect_and_describe, (img, F32, MeshSpec(4, 1)))]
-    return run_steps(steps, RANKS)
+    return run_steps(steps, RANKS, device="cpu")
 
 
 def cols(kp):
@@ -120,7 +120,7 @@ def test_equals_jax_spatial_two_octaves():
     compile)."""
     img = np.load(f"{DATA}/oracle_cave00.npz")["input"][::8, ::8].astype(np.float32)
     got = run_steps([Step(spatial_detect_and_describe, (img, F32, MeshSpec(4, 1)),
-                          dict(max_octaves=2))], RANKS)[0][0].out
+                          dict(max_octaves=2))], RANKS, device="cpu")[0][0].out
     mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
     want = jax_spatial(img, jax_config(F32, jnp.float32), mesh, max_octaves=2)
     assert_same_keypoints(got, want, 5)
