@@ -96,7 +96,16 @@ the two stages' and the stage-by-stage sweep's ms, and the outputs
 compared (the same candidates; descriptor bytes that differ printed);
 then each kernel, beside its library yardstick where there is one (B:
 ``cdist`` + ``topk``; D: cuDNN convolutions; E, G, H: ``copy_`` from an
-overlapping ``as_strided`` view of the padded input).
+overlapping ``as_strided`` view of the padded input).  Last, the streaming
+path (phase ``stream``, ``stream_phase``): the 35 scene frames as PNG
+through the native threaded loader (in order, bit-equal, a missing path
+raising at its position), ``as_batch``'s host-to-card bytes from a
+profiler trace, the pair x8 as a pinned uint8 card tensor against the
+float32 main path, the honesty scan at the bench's stream capacities (and
+what ``bench.py``'s capacities clip), the scene streamed from disk against the
+frames in memory (counted: D, F, B), ``pairwise_sq_dists`` against the
+exact integers and kernel B, and ``python -m sift_tpu_torch.bench`` and
+``scripts/torch_scene_throughput.py`` as a user runs them.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them, a ``{"kernels": [...]}`` line, and as the last
@@ -1238,6 +1247,245 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
         single_process_sweep_ms=single_ms, phase_s=time.perf_counter() - t_phase,
         script_s=time.perf_counter() - t_script))
     return total
+
+
+# bench.py's streaming capacities (bench.py:148-150), for the report of
+# what they clip on the scene.
+JAX_STREAM_CAPS = dict(extrema_cap=8192, kp_cap=2048, ori_cap=3072)
+STREAM_BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "best", "batch", "method",
+                       "stream_fps", "stream_method", "stream_in_memory_fps",
+                       "stream_h2d_ceiling_fps", "stream_h2d_MBps", "stream_caps", "device")
+
+
+def h2d_trace_bytes(fn, trace_path) -> int:
+    """Bytes that ``fn`` copies host to device, read from a
+    ``torch.profiler`` trace of one call (the memcpy events' ``bytes``)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    return sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+               if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+
+
+def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_counts,
+                 read_counts):
+    """Phase ``stream``: the streaming path (``sift_tpu_torch.bench``,
+    ``utils/native.ImageLoader``, ``scripts/torch_scene_throughput.py``).
+    Gates: (1) the 35 scene frames as PNG through ``ImageLoader`` at 1 and
+    8 threads, in order and bit-equal to the npz inputs, and a missing path
+    raising ``IOError`` at its own position; (2) ``as_batch`` moves a host
+    uint8 batch as uint8 (bytes copied host to device, from a profiler
+    trace, before and after the repair); (3) the pair x8 as a pinned uint8
+    card tensor (``bench.stage_batches``) gives the float32 main path's
+    buffers bit for bit and the 165-match set on every pair; (4) the
+    honesty scan passes at ``bench.STREAM_CAPS`` on all 35 frames, and what
+    bench.py's caps clip is printed; (5) the scene streamed from disk
+    (``bench.scene_matches``: batch 8, 4 threads, default capacities)
+    equals the entry point on the frames held in memory, frame by frame,
+    and its 34 consecutive-pair match sets equal the matcher's; (6)
+    launches: one streamed sweep D 1, F one an octave, B 1, the scene loop
+    D 5, F 5 x octaves, B 9, nothing else; (7) ``pairwise_sq_dists`` at
+    2048 x 2048 equals the exact integers, its row minima and first argmins
+    kernel B's; (8) ``python -m sift_tpu_torch.bench`` (short: 2 sweeps, 1
+    repeat, 1 streamed sweep) and ``scripts/torch_scene_throughput.py`` on
+    the PNGs as subprocesses, their lines complete (35 frames, 34 pairs,
+    the library's median).  Returns the launches of (6)."""
+    import numpy as np
+    import torch
+
+    from sift_tpu_torch import SiftConfig, match_descriptors, pairwise_sq_dists
+    from sift_tpu_torch import bench as BN
+    from sift_tpu_torch.models import sift as S
+    from sift_tpu_torch.ops.top2 import top2
+    from sift_tpu_torch.utils import native
+    from sift_tpu_torch.utils.keypoints import FIELDS
+    from sift_tpu_torch.utils.native import ImageLoader
+
+    t_phase = time.perf_counter()
+    need(native.available(), f"the native library does not build here (recipes {native.recipes()})")
+    scene = BN.scene_frames()
+    launches = {}
+
+    def match_set(idx, acc):
+        acc, idx = acc.cpu().numpy(), idx.cpu().numpy()
+        return {(i, int(idx[i])) for i in np.nonzero(acc)[0]}
+
+    def expect(path, want):
+        rest = {k: 0 for k in launches[path] if k not in want}
+        need(launches[path] == {**rest, **want}, f"{path}: launches {launches[path]}, want {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pdir = tmp / "scene"
+        pdir.mkdir()
+        paths = BN.write_pngs(scene, pdir)
+
+        # (1) the loader
+        for threads in (1, 8):
+            with ImageLoader(paths, threads) as loader:
+                got = list(loader)
+            need(len(got) == len(scene), f"loader, {threads} threads: {len(got)} frames")
+            for i, (g, s) in enumerate(zip(got, scene)):
+                need(g.dtype == np.float32 and g.shape == s.shape and np.array_equal(g, s),
+                     f"loader, {threads} threads: frame {i} differs from the npz input")
+        del got
+        holed = paths[:3] + [str(tmp / "missing.png")] + paths[3:6]
+        with ImageLoader(holed, 8) as loader:
+            head = [next(loader) for _ in range(3)]
+            try:
+                next(loader)
+                raised = None
+            except OSError as e:
+                raised = str(e)
+            tail = list(loader)
+        need(raised is not None and "frame 3" in raised, f"a missing path raised {raised!r}")
+        need(len(tail) == 3 and all(np.array_equal(a, b) for a, b in zip(head + tail, scene[:6])),
+             "the frames around a missing path")
+        t = time.perf_counter()
+        with ImageLoader(paths, 8) as loader:
+            n_dec = sum(1 for _ in loader)
+        decode_fps = n_dec / (time.perf_counter() - t)
+
+        # (2) as_batch on a host uint8 batch: bytes across, before and after
+        old = lambda: torch.as_tensor(frames).to(device=dev, dtype=cfg.dtype)  # noqa: E731
+        new = lambda: S.as_batch(frames, cfg, dev)  # noqa: E731
+        same(old(), new(), "as_batch: the repaired conversion vs the one-step copy")
+        h2d_old = h2d_trace_bytes(old, tmp / "old.json")
+        h2d_new = h2d_trace_bytes(new, tmp / "new.json")
+        need(h2d_new == frames.nbytes, f"as_batch copied {h2d_new} bytes host to device, "
+             f"the uint8 batch holds {frames.nbytes}")
+        as_batch_ms = [host_ms(fn, 5) for fn in (old, new, new, old)]
+
+        # (3) the uint8 path: the pair x8 as a pinned uint8 card tensor
+        staged = list(BN.stage_batches(frames, len(frames), dev))
+        need(len(staged) == 1 and staged[0][1] == len(frames), "the pair batch staged in one")
+        u8 = staged[0][0]
+        need(u8.dtype == torch.uint8 and u8.device.type == "cuda", f"staged {u8.dtype} {u8.device}")
+        ku = S.detect_and_describe_batch(u8, cfg, device=dev)
+        for f in FIELDS:
+            same(getattr(ku, f), getattr(main_kp, f), f"uint8 batch vs the float32 main path: {f}")
+        mi, ma, _, _ = match_descriptors(ku.desc[0::2], ku.valid[0::2], ku.desc[1::2],
+                                         ku.valid[1::2], cfg.ratio_threshold, device=dev)
+        for p in range(ma.shape[0]):
+            need(match_set(mi[p], ma[p]) == oracle_set, f"uint8 batch pair {p}: match set")
+        u8_kp = ku.valid.sum(1).tolist()[:2]
+        del staged, u8, ku
+
+        # (4) the honesty scan at the bench's capacities; what bench.py's clip
+        scfg = SiftConfig(**BN.STREAM_CAPS)
+        try:
+            most = BN.honesty_scan(paths, scfg, BATCH, 8, dev)
+        except BN.CapacityError as e:
+            raise SmokeError(f"stream honesty scan at {BN.STREAM_CAPS}: {e}") from e
+        jcfg = SiftConfig(**JAX_STREAM_CAPS)
+        jax_clips = []
+        with ImageLoader(paths, 8) as loader:
+            for k, (b, n) in enumerate(BN.stage_batches(loader, BATCH, dev)):
+                _, c = S.detect_and_describe_batch(b, jcfg, return_counts=True, device=dev)
+                jax_clips += BN.clipped(c, jcfg, n, k * BATCH)
+
+        # (5) + (6) the scene from disk against the frames in memory, counted
+        dcfg = SiftConfig()
+        zero_counts()
+        skp, (sidx, sacc) = BN.scene_matches(paths, dcfg, 8, 4, dev)
+        launches["stream_scene"] = read_counts()
+        n_pairs = SCENE_FRAMES - 1
+        n_batches = -(-SCENE_FRAMES // 8)
+        expect("stream_scene", dict(blur_pass=n_batches, octave_front_twin=n_batches * octaves,
+                                    top2=-(-n_pairs // 4)))
+        refs = []
+        for lo in range(0, SCENE_FRAMES, 8):
+            chunk = scene[lo:lo + 8]
+            chunk = chunk + [chunk[-1]] * (8 - len(chunk))
+            refs.append(S.detect_and_describe_batch(np.stack(chunk), dcfg, device=dev).map(
+                lambda a, n=min(8, SCENE_FRAMES - lo): a[:n]))
+        ref = type(skp)(**{f: torch.cat([getattr(r, f) for r in refs]) for f in FIELDS})
+        for f in FIELDS:
+            same(getattr(skp, f), getattr(ref, f), f"streamed scene vs in memory: {f}")
+        pair_matches = []
+        for i in range(n_pairs):
+            ri, ra, _, _ = match_descriptors(ref.desc[i], ref.valid[i], ref.desc[i + 1],
+                                             ref.valid[i + 1], dcfg.ratio_threshold, device=dev)
+            want = match_set(ri, ra)
+            need(match_set(sidx[i], sacc[i]) == want, f"streamed scene pair {i}-{i + 1}")
+            pair_matches.append(len(want))
+        median_matches = int(np.median(pair_matches))
+        del skp, refs, ref
+
+        zero_counts()
+        BN.stream_sweeps(paths, scfg, BATCH, 1, 8, dev)
+        launches["stream"] = read_counts()
+        expect("stream", dict(blur_pass=1, octave_front_twin=octaves, top2=1))
+
+        # (7) pairwise_sq_dists on the card against the exact integers and kernel B
+        rng = np.random.default_rng(7)
+        da = rng.integers(0, 256, (2048, 128), dtype=np.uint8)
+        db = rng.integers(0, 256, (2048, 128), dtype=np.uint8)
+        db[[5, 9]] = da[0]  # a tie: the first column wins
+        da[1] = 255
+        d2 = pairwise_sq_dists(da, db, device=dev)
+        torch.cuda.synchronize()
+        fa, fb = da.astype(np.float64), db.astype(np.float64)  # exact: integers < 2^53
+        exact = ((fa * fa).sum(1)[:, None] + (fb * fb).sum(1)[None, :]
+                 - 2 * fa @ fb.T).astype(np.int64)
+        d2h = d2.cpu().numpy()
+        need(d2.dtype == torch.int32 and np.array_equal(d2h.astype(np.int64), exact),
+             "pairwise_sq_dists on the card differs from the exact integers")
+        ta, tb = (torch.from_numpy(x).to(dev)[None] for x in (da, db))
+        best, _, bidx = top2(ta, tb, torch.ones(1, len(db), dtype=torch.bool, device=dev))
+        need(np.array_equal(d2h.min(1), best[0].cpu().numpy())
+             and np.array_equal(d2h.argmin(1), bidx[0].cpu().numpy()),
+             "pairwise_sq_dists' row minima / first argmins differ from kernel B's")
+        pairwise_ms = cuda_ms(lambda: pairwise_sq_dists(ta[0], tb[0], device=dev), 10)
+        del d2, ta, tb
+
+        # (8) the bench and the scene script as a user runs them
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sift_tpu_torch.bench", "--sweeps", "2",
+                               "--repeats", "1", "--stream-sweeps", "1", "--stream-repeats", "1"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        bench_wall_s = time.perf_counter() - t
+        need(proc.returncode == 0, f"python -m sift_tpu_torch.bench exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        need(set(STREAM_BENCH_FIELDS) <= set(line),
+             f"the bench's line lacks {set(STREAM_BENCH_FIELDS) - set(line)}")
+        need(line["stream_caps"] == BN.STREAM_CAPS and line["unit"] == "frames/s"
+             and line["device"] == smi, f"the bench's line: {line}")
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_scene_throughput.py"),
+                               str(pdir)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        scene_wall_s = time.perf_counter() - t
+        need(proc.returncode == 0, f"torch_scene_throughput.py exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+        sline = json.loads(proc.stdout.strip().splitlines()[-1])
+        need((sline["frames"], sline["pairs_matched"], sline["median_pair_matches"])
+             == (SCENE_FRAMES, n_pairs, median_matches), f"the scene script's line: {sline}")
+
+    emit(dict(phase="stream", nvidia_smi=smi, frames=SCENE_FRAMES,
+              loader=dict(threads=[1, 8], bit_equal=True, missing_path=raised,
+                          decode_fps_8_threads=decode_fps),
+              as_batch_h2d_bytes=dict(one_step=h2d_old, repaired=h2d_new,
+                                      uint8_batch=frames.nbytes),
+              as_batch_ms_turns=dict(one_step=[as_batch_ms[0], as_batch_ms[3]],
+                                     repaired=as_batch_ms[1:3]),
+              uint8_path=dict(keypoints=u8_kp, matches=len(oracle_set), bit_equal=True),
+              stream_caps=BN.STREAM_CAPS, stream_max_counts=most,
+              jax_stream_caps=JAX_STREAM_CAPS, jax_stream_caps_clip=jax_clips,
+              scene_loop=dict(batch=8, threads=4, pairs=n_pairs, median_matches=median_matches,
+                              equal_to_in_memory=True),
+              launches=launches, pairwise_2048_ms=pairwise_ms,
+              bench=dict(wall_s=bench_wall_s, line=line),
+              scene_script=dict(wall_s=scene_wall_s, line=sline),
+              resident_fps=line["value"], stream_fps=line["stream_fps"],
+              h2d_ceiling_fps=line["stream_h2d_ceiling_fps"],
+              phase_s=time.perf_counter() - t_phase))
+    return launches
 
 
 def wide_frames(rows=None):
@@ -2776,6 +3024,11 @@ def main() -> int:
               build_multi_rows_kernel_ms=h_ms, build_multi_rows_device_ms=h_dev_ms,
               twin_rows_2d_single_calls_ms=h_single_ms, twin_rows_2d_plain_ms=h_plain_ms,
               twin_rows_2d_library_ms=h_lib_ms))
+
+    # -- phase 9c: the streaming path: the loader, uint8 frames to the card,
+    # the bench and the scene script, counted ------------------------------------
+    launches.update(stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves,
+                                 zero_counts, read_counts))
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}

@@ -13,11 +13,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from sift_tpu_torch.config import SiftConfig  # noqa: E402
-from sift_tpu_torch.models.match import match_descriptors  # noqa: E402
+from sift_tpu_torch.models.match import match_descriptors, pairwise_sq_dists  # noqa: E402
 from sift_tpu_torch.models.sift import (  # noqa: E402
     detect_and_describe,
     detect_and_describe_batch,
 )
+from sift_tpu_torch.utils.io import load_image, save_image  # noqa: E402
 from sift_tpu_torch.utils.keypoints import Keypoints  # noqa: E402
 
 __all__ = [
@@ -26,4 +27,7 @@ __all__ = [
     "detect_and_describe",
     "detect_and_describe_batch",
     "match_descriptors",
+    "pairwise_sq_dists",
+    "load_image",
+    "save_image",
 ]

@@ -16,6 +16,26 @@ from sift_tpu_torch.ops.top2 import HUGE_D2, top2
 from sift_tpu_torch.utils.numerics import resolve_device
 
 
+def pairwise_sq_dists(desc1, desc2, device="cuda") -> torch.Tensor:
+    """(N, M) int32 exact squared L2 distances between uint8 descriptor
+    sets (N, 128) and (M, 128), tensors or arrays, on ``device``.
+
+    ||a||^2 + ||b||^2 - 2 a.b^T in float32, the product by ``torch.matmul``
+    with TF32 off (the package sets it), as the JAX package leaves it to
+    XLA.  Every partial sum is an integer below 2^24 (a norm or a dot
+    product is at most 128 * 255^2 < 2^23, two norms together below 2^24),
+    so each is exact in float32 and the result is exact in any summation
+    order.  The matcher does not go through it: its top-2 is kernel B,
+    which never forms the matrix.
+    """
+    dev = resolve_device(device)
+    a, b = (torch.as_tensor(d).to(dev).to(torch.float32) for d in (desc1, desc2))
+    g = a @ b.T
+    na = (a * a).sum(1)
+    nb = (b * b).sum(1)
+    return (na[:, None] + nb[None, :] - 2.0 * g).to(torch.int32)
+
+
 def ratio_accept(best, second, valid1, ratio_threshold: float = 0.75):
     """Lowe's test on exact squared distances; a lone valid target always
     accepts (second == HUGE), an empty target set never does."""

@@ -76,14 +76,27 @@ from sift_tpu_torch.ops.gather import (
 from sift_tpu_torch.ops.octave_front import front_twin_strip
 from sift_tpu_torch.ops.twin_rows import twin_rows_strips
 from sift_tpu_torch.utils import keypoints as kputil
+from sift_tpu_torch.utils import native
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import resolve_device
 
 
 def as_batch(images, cfg: SiftConfig, device) -> torch.Tensor:
-    """(B, H, W[, C]) array or tensor -> (B, H, W, C) tensor on ``device``."""
-    imgs = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
-    imgs = imgs.to(device=resolve_device(device), dtype=cfg.dtype)
+    """(B, H, W[, C]) array or tensor -> (B, H, W, C) ``cfg.dtype`` tensor
+    on ``device``.
+
+    The pixels cross to the device in their own dtype and are converted
+    there: a host-to-card copy that also changes the dtype converts on the
+    host first, so a uint8 batch would cross as float32, four times the
+    bytes.  Only a wider input (float64 for the float32 profile) is
+    narrowed before it crosses.  A tensor already on the device is not
+    copied.  Either side converts with the same rounding, so the result
+    does not depend on where.
+    """
+    imgs = images if torch.is_tensor(images) else torch.as_tensor(np.asarray(images))
+    if imgs.dtype.itemsize > cfg.dtype.itemsize:
+        imgs = imgs.to(cfg.dtype)
+    imgs = imgs.to(resolve_device(device)).to(cfg.dtype)
     if imgs.dim() == 3:  # grayscale batch: make the channel explicit
         imgs = imgs[..., None]
     return imgs
@@ -315,9 +328,14 @@ def host_exact_sizes(kp: Keypoints, off0, cfg: SiftConfig) -> Keypoints:
     off = off0.cpu().numpy().astype(np.float64)
     scale = cfg.init_sigma * np.power(2.0, kp.octave.cpu().numpy().astype(np.float64))
     t = (layer + off) / float(cfg.intervals)
-    flat_s, flat_t, flat_sc = size.reshape(-1), t.reshape(-1), scale.reshape(-1)
-    for i in np.nonzero(kp.valid.cpu().numpy().reshape(-1))[0]:
-        flat_s[i] = flat_sc[i] * math.pow(2, float(flat_t[i]))
+    valid = kp.valid.cpu().numpy()
+    p = native.pow2_glibc(t)  # libm's pow(2, .) per lane, bit-equal to math.pow
+    if p is not None:
+        np.copyto(size, scale * p, where=valid)
+    else:
+        flat_s, flat_t, flat_sc = size.reshape(-1), t.reshape(-1), scale.reshape(-1)
+        for i in np.nonzero(valid.reshape(-1))[0]:
+            flat_s[i] = flat_sc[i] * math.pow(2, float(flat_t[i]))
     return dataclasses.replace(kp, size=torch.from_numpy(size).to(kp.size.device))
 
 

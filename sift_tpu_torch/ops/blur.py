@@ -12,9 +12,10 @@ IEEE operations one by one, so the two agree bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from sift_tpu_torch.config import half_kernel_weight_sum
+from sift_tpu_torch.config import gaussian_half_kernel, half_kernel_weight_sum
 from sift_tpu_torch.utils.numerics import xdiv
 
 
@@ -34,3 +35,15 @@ def separable_blur(img: torch.Tensor, half_kernel: list[float]) -> torch.Tensor:
     sum_w = half_kernel_weight_sum(half_kernel)
     tmp = _one_axis(img, half_kernel, sum_w, img.dim() - 1)
     return _one_axis(tmp, half_kernel, sum_w, img.dim() - 2)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Gaussian blur per src/image.cpp:220-238 (kernel size ceil(3*sigma)+1)."""
+    return separable_blur(img, gaussian_half_kernel(sigma))
+
+
+def full_kernel(half_kernel: list[float]) -> np.ndarray:
+    """The symmetric full kernel, float64, normalised by the reference's
+    applied-weight sum ``sum_w``."""
+    k = np.asarray(half_kernel, np.float64)
+    return np.concatenate([k[:0:-1], k]) / half_kernel_weight_sum(half_kernel)

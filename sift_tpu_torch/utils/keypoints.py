@@ -96,6 +96,12 @@ def _fit(a: torch.Tensor, out_cap: int, lane_dim: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros(shape)], dim=lane_dim)
 
 
+def compact_indices(valid: torch.Tensor, out_cap: int):
+    """Indices packing valid lanes front-first: ``(idx, in_range)``, as
+    ``ops/gather.compact_mask`` gives them (idx clamped into [0, n - 1])."""
+    return compact_mask(valid, out_cap)
+
+
 def compact(kp: Keypoints, out_cap: int, extra=None):
     """Pack valid lanes to the front of an ``out_cap``-lane buffer.
 

@@ -12,6 +12,14 @@ from __future__ import annotations
 import torch
 
 
+def xmul(a, b):
+    """A product rounded on its own, as the C++ reference rounds it.  Every
+    PyTorch elementwise op is its own kernel, so nothing fuses it into a
+    multiply-add and no barrier is needed (the JAX helper hides float64
+    products from XLA's contraction)."""
+    return a * b
+
+
 def xdiv(a: torch.Tensor, b) -> torch.Tensor:
     """True division, also when ``b`` is a constant."""
     if not isinstance(b, torch.Tensor):

@@ -34,7 +34,7 @@ def _imported_modules(path: pathlib.Path):
 
 # The port's scripts that run on the card beside chip_smoke.py.
 PORT_SCRIPTS = ["ab_blur_top2.py", "ab_cube_pack.py", "ab_twin_rows.py", "tune_octave_front.py",
-                "torch_parallel_match.py"]
+                "torch_parallel_match.py", "torch_scene_throughput.py", "torch_stream_breakdown.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -191,3 +191,38 @@ def test_parallel_slice_entry_points_default_to_cuda(tmp_path, monkeypatch):
                          np.zeros(2, bool))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_keypoints(str(tmp_path / "missing.npz"))
+
+
+def test_pairwise_sq_dists_defaults_to_cuda_and_raises_without_it():
+    import inspect
+
+    from sift_tpu_torch import pairwise_sq_dists
+
+    assert inspect.signature(pairwise_sq_dists).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    d = np.zeros((4, 128), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pairwise_sq_dists(d, d)
+
+
+def test_streaming_path_defaults_to_cuda_and_raises_without_it(capsys):
+    """The bench's functions take the card unless asked for the CPU; without
+    one they raise, and ``bench.main`` exits 2 naming ``--device cpu``
+    before it runs anything."""
+    import inspect
+
+    from sift_tpu_torch import bench
+
+    fns = (bench.resident, bench.streaming, bench.scene_matches, bench.stream_sweeps,
+           bench.stage_batches, bench.honesty_scan, bench.h2d_ceiling)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    assert bench.main([]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(bench.stage_batches([np.zeros((8, 8, 3), np.uint8)], 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.resident(2, 1, 1)
