@@ -65,16 +65,26 @@ the detection, edge solve and composite timed); frames 00-04 on the card
 against the CPU on the same keypoints and hypotheses (corners within 0.05
 px, 99.5% of pixels within 1 grey level); a planted RANSAC tie; and the
 cylindrical driver on three crops of frame 05 within the JAX test's
-bounds.  Then incremental SfM: kernels D, F and B against their plain
-versions at its shapes (phase ``sfm_kernels_vs_plain``), and (phase
-``sfm``) ``run_sfm`` on the card on the JAX package's rendered evaluation
-sequences, sweep-50 and the 97-frame multi-pass loop (320x240 from
-CAVE-01 frame 00; counted: D and F for every frame, B for every matched
-pair), each run again with its stages timed; the loop gated on registered
-frames, ATE and the loop-closure repair, the sweep over 21 RANSAC streams
-against the JAX package's own spread, both on the bundle adjustment's
-residual; and the JAX test's 6-frame sequence twice on the card
-(bit-equal) and once on the CPU (the same frames and initial pair,
+bounds.  Then the port's evaluation tools as a user runs them (phase
+``tools``): ``scripts/torch_verify_scene_parity.py`` at the scene's
+capacities with ``--provenance`` (the bench-capacity anchor, the exact
+165-match set; every frame's keypoints and every chain edge's matches
+equal to the stitch phase's; every differing match of a non-exact edge
+classified), ``scripts/torch_sfm_eval.py --frames 8`` (its four lines and
+its table; all 8 frames of the sweep registered) and
+``scripts/torch_bench_scaling.py`` at world size 1 (a well-formed line,
+nothing clipped, frame 0's keypoints bit-equal to a direct ``detect_fn``
+call, kernels D and H launched).  Then incremental SfM: kernels D, F and
+B against their plain versions at its shapes (phase
+``sfm_kernels_vs_plain``), and (phase ``sfm``) ``run_sfm`` on the card
+on the JAX package's rendered evaluation sequences (rendered and measured
+by ``scripts/torch_sfm_eval.py``'s functions), sweep-50 and the 97-frame
+multi-pass loop (320x240 from CAVE-01 frame 00; counted: D and F for
+every frame, B for every matched pair), each run again with its stages
+timed; the loop gated on registered frames, ATE and the loop-closure
+repair, the sweep over 21 RANSAC streams against the JAX package's own
+spread, both on the bundle adjustment's residual; and the JAX test's
+6-frame sequence twice on the card (bit-equal) and once on the CPU (the same frames and initial pair,
 centres within 1% of the span).  Then the multi-device layer (phase
 ``parallel``, ``sift_tpu_torch/parallel``): one pool of four spawned ranks
 that share the card through gloo runs, each call counted per rank
@@ -117,6 +127,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -593,77 +604,23 @@ def library_blur(img, hk):
     return x[:, 0]
 
 
-def render_sequence(tex, n_frames=6, w=320, h=240, fx=300.0, baseline=0.08, ts=None):
-    """The JAX package's planar-stack renderer (tests/test_sfm_images.py:
-    25-57) with its texture passed in: three texture bands at depths 9 / 6
-    / 4 units, the camera at x = t for each t of ``ts`` (else ``n_frames``
-    steps of ``baseline``); a plane at depth d shifts by fx * t / d pixels,
-    sampled at subpixel positions.  Returns (frames, gt_centers)."""
-    import numpy as np
+@functools.cache
+def port_script(name):
+    """``scripts/<name>.py`` as a module, loaded once (the port's scripts
+    import only torch, numpy and the port)."""
+    import importlib.util
 
-    tex = tex[: h + 60, : w + 120]
-    depths = [9.0, 6.0, 4.0]
-    bands = [tex[i * 80: i * 80 + 100] for i in range(3)]
-    frames, centers = [], []
-    if ts is None:
-        ts = [f * baseline for f in range(n_frames)]
-    for t in ts:
-        img = np.zeros((h, w, 3), np.float32)
-        for band, d in zip(bands, depths):
-            shift = fx * t / d
-            x0 = int(np.floor(shift))
-            frac = np.float32(shift - x0)
-            lo = band[:, x0: x0 + w]
-            hi = band[:, x0 + 1: x0 + 1 + w]
-            src = (1 - frac) * lo[:, : hi.shape[1]] + frac * hi
-            y0 = {9.0: 0, 6.0: 80, 4.0: 160}[d]
-            img[y0: y0 + src.shape[0], : src.shape[1]] = src[: h - y0]
-        frames.append(img)
-        centers.append(np.array([t, 0.0, 0.0]))
-    return frames, np.stack(centers)
-
-
-def sfm_texture():
-    """CAVE-01 frame 00 as float32 RGB (the oracle's decoded pixels)."""
-    import numpy as np
-
-    return np.load(DATA / "scene_oracle" / "cave01_00.npz")["input"].astype(np.float32)[:, :, :3]
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def sfm_sequences(n=SFM_FRAMES):
-    """scripts/sfm_eval.py's sweep-n (:96-100) and multi-pass loop (:128-136)
-    camera positions."""
-    base = 1.6 / n
-    seg = max((2 * n) // 3, 4)
-    step = 1.6 / seg
-    loop = ([f * step for f in range(seg)] + [(seg - 2 - f) * step for f in range(seg - 1)]
-            + [(f + 1) * step for f in range(seg - 1)])
-    return {f"sweep-{n}": [f * base for f in range(n)], f"bigloop-{len(loop)}": loop}
-
-
-def trajectory_metrics(centers, gt) -> dict:
-    """ATE-RMSE after similarity (Umeyama) alignment and RPE per frame step,
-    as scripts/sfm_eval.py:29-57 computes them, with both as a % of the
-    path."""
-    import numpy as np
-
-    mu_c, mu_g = centers.mean(axis=0), gt.mean(axis=0)
-    cc, gg = centers - mu_c, gt - mu_g
-    u, d, vt = np.linalg.svd(gg.T @ cc / len(cc))
-    sgn = np.eye(3)
-    if np.linalg.det(u @ vt) < 0:
-        sgn[2, 2] = -1
-    r = u @ sgn @ vt
-    var_c = (cc * cc).sum() / len(cc)
-    s = float(np.trace(np.diag(d) @ sgn) / max(var_c, 1e-12))
-    aligned = (s * (r @ cc.T)).T + mu_g
-    ate = float(np.sqrt(((aligned - gt) ** 2).sum(axis=1).mean()))
-    rpe = float(np.sqrt(((np.diff(aligned, axis=0) - np.diff(gt, axis=0)) ** 2).sum(axis=1).mean()))
-    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
-    return {"ate_rmse_m": ate, "rpe_rmse_m": rpe, "path_m": path,
-            "ate_pct_of_path": 100.0 * ate / max(path, 1e-9),
-            "rpe_pct_of_path": 100.0 * rpe / max(path, 1e-9),
-            "max_dev_m": float(np.linalg.norm(aligned - gt, axis=1).max())}
+    """scripts/sfm_eval.py's sweep-n and multi-pass loop camera positions
+    (``scripts/torch_sfm_eval.sequences``)."""
+    return {k: v for k, v in port_script("torch_sfm_eval").sequences(n).items()
+            if not k.startswith("loop-")}
 
 
 def stream_stats(values) -> dict:
@@ -675,17 +632,6 @@ def stream_stats(values) -> dict:
     q1, med, q3 = np.percentile(v, [25, 50, 75])
     return dict(n=len(v), mean=float(v.mean()), sd=float(v.std(ddof=1)), min=float(v.min()),
                 q1=float(q1), median=float(med), q3=float(q3), max=float(v.max()))
-
-
-def camera_centers(poses):
-    """(C, 3) centres -R^T t of (C, 6) [rvec, tvec] poses, in float64."""
-    import numpy as np
-    import torch
-
-    from sift_tpu_torch.models.geometry import rodrigues
-
-    r = rodrigues(torch.as_tensor(poses[:, :3], dtype=torch.float64)).numpy()
-    return -np.einsum("nji,nj->ni", r, poses[:, 3:])
 
 
 def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
@@ -703,14 +649,19 @@ def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
 
     from sift_tpu_torch import SiftConfig
     from sift_tpu_torch.models import sfm as SF
+    from sift_tpu_torch.utils.profiling import StageTimer
 
+    ev = port_script("torch_sfm_eval")
+    render_sequence, trajectory_metrics, camera_centers = (
+        ev.render_sequence, ev.trajectory_metrics, ev.camera_centers)
     cfg = SiftConfig(**SFM_CAPS)
     k = np.array(SFM_K)
-    tex = sfm_texture()
+    tex = ev.texture()
     stages = ("detect_and_describe", "match_descriptors", "_geometric_verify",
               "_candidate_counts", "_register_frame", "_triangulate_new", "_finish_global_ba",
               "pose_graph_relax", "_fill_unregistered_by_interpolation")
-    spent, passes, init_pairs, calls, inputs = {}, [], [], {}, []
+    timer, passes, init_pairs, inputs = StageTimer(), [], [], []
+    spent, calls = timer.totals, timer.counts
     orig = {n: getattr(SF, n) for n in stages + ("run_sfm_from_matches",)}
 
     def sync():
@@ -721,14 +672,11 @@ def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
         def run(*a, **kw):
             if name == "_finish_global_ba":
                 init_pairs.append((int(a[6]), int(a[7])))
-            calls[name] = calls.get(name, 0) + 1
             sync()
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
+            with timer.stage(name):
+                out = fn(*a, **kw)
                 sync()
-                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
         return run
 
     def by_pass(fn):
@@ -1724,6 +1672,142 @@ def wide_fallback_phase(dev, frames, zero_counts, read_counts, honest):
                           bound_by=g_bound[1], shape=d_shape), errs
 
 
+def run_tool(args, what):
+    """``python3 scripts/<args>`` from the repository's root as a user runs
+    it: (its JSON lines, wall seconds); a non-zero exit fails the run."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / args[0]), *args[1:]], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    need(proc.returncode == 0, f"{what} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")], wall
+
+
+def tools_phase(dev, smi, scene_kp, chain_n, octaves, zero_counts, read_counts):
+    """Phase ``tools``: the port's three evaluation scripts on the card as a
+    user runs them, each held to what the earlier phases established.
+
+    * ``torch_verify_scene_parity.py --caps <SCENE_CAPS> --provenance``:
+      the bench-capacity anchor is the exact 165-match set; every frame's
+      keypoints and every chain edge's matches equal the stitch phase's
+      (``scene_kp``, ``chain_n``: the same frames and capacities through
+      the entry point at batch 1); every non-exact edge's differing matches
+      are classified; launches D 1 + 5 batches, F 8 a batch, B 1 + 34.
+    * ``torch_sfm_eval.py --frames 8 --out FILE``: the four sequences'
+      lines and the table; sweep-8 registers all 8 frames; D once and F
+      once an octave for every frame, B on every matched pair.
+    * ``torch_bench_scaling.py`` at world size 1: a well-formed line, no
+      clipped count, frame 0's keypoints bit-equal (SHA-256 of every field
+      of the valid lanes) to a direct ``detect_fn`` call in this process,
+      and the rank's launches of kernels D and H those of the direct call
+      for each of its frames.
+
+    Returns the launches of the scripts' runs, summed (the scaling rank's
+    first iteration)."""
+    import numpy as np
+    import torch
+
+    from sift_tpu_torch import SiftConfig
+    from sift_tpu_torch.models.sift import detect_fn
+
+    t_phase = time.perf_counter()
+    c = SiftConfig(**SCENE_CAPS)
+    caps = f"{c.extrema_cap},{c.kp_cap},{c.ori_cap}"
+    lines, audit_s = run_tool(["torch_verify_scene_parity.py", "--caps", caps, "--provenance"],
+                              "the scene audit")
+    anchor, summary = lines[0], lines[-1]
+    need(anchor.get("set_exact") is True and anchor["matches"] == WANT_MATCHES,
+         f"the audit's bench-caps anchor: {anchor}")
+    frames = [r for r in lines if "frame" in r]
+    edges = [r for r in lines if "edge" in r]
+    need([r["frame"] for r in frames] == list(range(SCENE_FRAMES))
+         and [r["mine"] for r in frames] == scene_kp,
+         f"the audit's keypoints {[r['mine'] for r in frames]}, the stitch phase's {scene_kp}")
+    need([r["edge"] for r in edges] == [[i, i + 1] for i in range(SCENE_FRAMES - 1)]
+         and [r["matches"] for r in edges] == chain_n,
+         f"the audit's chain matches {[r['matches'] for r in edges]}, the stitch phase's {chain_n}")
+    need(summary.get("summary") and summary["graph"] == "chain"
+         and (summary["frames"], summary["edges"]) == (SCENE_FRAMES, SCENE_FRAMES - 1),
+         f"the audit's summary: {summary}")
+    kinds = {"kp-miss": 0, "ratio-flip": 0}
+    for r in edges:
+        if r["set_exact"]:
+            continue
+        prov = r.get("provenance")
+        need(prov is not None and all(e["kind"] in kinds for e in prov)
+             and sum(e["side"] == "ref-only" for e in prov) == r["ref_matches"] - r["overlap"]
+             and all(isinstance(e.get("margin"), int) for e in prov if e["kind"] == "ratio-flip"),
+             f"edge {r['edge']}: differing matches not all classified: {r}")
+        for e in prov:
+            kinds[e["kind"]] += 1
+    batches = -(-SCENE_FRAMES // 8)
+    want = dict(blur_pass=1 + batches, octave_front_twin=octaves * (1 + batches),
+                top2=1 + SCENE_FRAMES - 1)
+    need({k: summary["launches"][k] for k in want} == want,
+         f"the audit's launches {summary['launches']}, want {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "sfm.md"
+        recs, sfm_s = run_tool(["torch_sfm_eval.py", "--frames", "8", "--out", str(out)],
+                               "the SfM harness")
+        table = out.read_text().splitlines()
+    names = ["sweep-8", "loop-7", "bigloop-13", "bigloop-13-noclosure"]
+    need([r["seq"] for r in recs] == names, f"the SfM harness's sequences {[r['seq'] for r in recs]}")
+    need(recs[0]["registered"] == recs[0]["frames"] == 8,
+         f"sweep-8: {recs[0]['registered']} of 8 frames registered")
+    need(all(np.isfinite(r[k]) for r in recs for k in ("ate_rmse_m", "rpe_rmse_m", "ate_pct_of_path")),
+         f"the SfM harness's metrics: {recs}")
+    need(table[3].startswith("| sequence | frames | ATE-RMSE")
+         and [ln.split(" | ")[0][2:] for ln in table[5:9]] == names, f"the SfM table: {table}")
+    s_oct = SiftConfig(**SFM_CAPS).octaves_count(2 * 320, 2 * 240)
+    for r in recs:
+        got = r["launches"]
+        need(got["blur_pass"] == r["frames"] and got["octave_front_twin"] == s_oct * r["frames"]
+             and got["top2"] > 0, f"{r['seq']}: launches {got}")
+
+    lines, scaling_s = run_tool(["torch_bench_scaling.py"], "the scaling harness")
+    line = lines[-1]
+    sc = port_script("torch_bench_scaling")
+    h, w = line["size"]
+    row = line["scaling"][0]
+    need(line["mode"] == "cuda" and [r["devices"] for r in line["scaling"]]
+         == sc.sizes_upto(torch.cuda.device_count())
+         and row["frames_per_s"] > 0 and row["efficiency"] == 1.0 and line["clipped"] == []
+         and len(row["keypoints_sha256"]) == line["per_device_batch"],
+         f"the scaling line: {line}")
+    cfg = sc.config_for(h, w)
+    zero_counts()
+    kp = detect_fn(sc.images(1, h, w)[0], cfg, cfg.octaves_count(2 * w, 2 * h), device=dev)
+    direct = read_counts()
+    need(sc.keypoints_digest(kp) == row["keypoints_sha256"][0]
+         and int(kp.valid.sum()) == row["keypoints"][0],
+         f"scaling frame 0: {row['keypoints'][0]} keypoints, a direct detect_fn call "
+         f"{int(kp.valid.sum())}; digests {row['keypoints_sha256'][0]} / {sc.keypoints_digest(kp)}")
+    pdb = line["per_device_batch"]
+    need(direct["blur_pass"] > 0 and direct["twin_rows_2d"] > 0
+         and all(row["launches"][k] == pdb * direct[k] for k in ("blur_pass", "twin_rows_2d")),
+         f"scaling launches: rank {row['launches']}, a direct call {direct}")
+
+    launches = {k: summary["launches"][k] + sum(r["launches"][k] for r in recs)
+                + row["launches"][k] for k in summary["launches"]}
+    emit(dict(phase="tools", nvidia_smi=smi,
+              audit=dict(command=f"scripts/torch_verify_scene_parity.py --caps {caps} --provenance",
+                         wall_s=audit_s, anchor=anchor, summary=summary,
+                         keypoints_equal_stitch_phase=True, chain_matches_equal_stitch_phase=True,
+                         non_exact_edges=[r["edge"] for r in edges if not r["set_exact"]],
+                         differing_matches=kinds, overlap=sum(r["overlap"] for r in edges),
+                         ref_matches=sum(r["ref_matches"] for r in edges)),
+              sfm=dict(command="scripts/torch_sfm_eval.py --frames 8 --out FILE", wall_s=sfm_s,
+                       sequences=[{k: r[k] for k in ("seq", "frames", "registered", "ate_rmse_m",
+                                                     "ate_pct_of_path", "rpe_rmse_m", "seconds",
+                                                     "launches")} for r in recs],
+                       table_rows=len(names)),
+              scaling=dict(command="scripts/torch_bench_scaling.py", wall_s=scaling_s, line=line,
+                           frame0_bit_equal_detect_fn=True, direct_launches=direct),
+              launches=launches, phase_s=time.perf_counter() - t_phase))
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import numpy as np
@@ -1786,6 +1870,7 @@ def main() -> int:
     from sift_tpu_torch.utils.io import save_image
     from sift_tpu_torch.utils.keypoints import FIELDS, compact
     from sift_tpu_torch.parallel.multihost import kernel_wrappers
+    from sift_tpu_torch.utils.profiling import StageTimer
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -2752,6 +2837,11 @@ def main() -> int:
                                focal=diag["focal"], blend=cyl_blend, seconds=cyl_s)))
     del kps35, kps5, kps5_cpu, pano35, pano5_card, pano5_cpu, cpano, diag
 
+    # -- phase 8d: the evaluation tools (scene audit, SfM harness, scaling
+    # harness) as a user runs them, against the stitch phase's counts ---------
+    launches["tools"] = tools_phase(dev, smi, scene_kp, chain_n, octaves, zero_counts,
+                                    read_counts)
+
     # -- phase 8e: kernels D, F and B against their plain versions at the SfM
     # path's shapes: one rendered 320 x 240 frame doubled to 480 x 640 at
     # batch 1 (D, its blur; F, every octave into its own plan's buffers) and
@@ -2759,7 +2849,8 @@ def main() -> int:
     sfm_cfg = SiftConfig(**SFM_CAPS)
     shks, sthr = blur_half_kernels(sfm_cfg), sfm_cfg.extremum_threshold()
     spre = gaussian_half_kernel(math.sqrt(sfm_cfg.init_sigma * sfm_cfg.init_sigma - 1))
-    sframes, _ = render_sequence(sfm_texture(), ts=sfm_sequences()[f"sweep-{SFM_FRAMES}"][:2])
+    sframes, _ = port_script("torch_sfm_eval").render_sequence(
+        ts=sfm_sequences()[f"sweep-{SFM_FRAMES}"][:2])
     simg = S.as_batch(sframes[0][None], sfm_cfg, dev)
     soct = S.octaves_for(simg, sfm_cfg)
     sgray = upsample_bilinear(to_grayscale(simg).to(sfm_cfg.dtype), 2, 2).contiguous()
@@ -2831,14 +2922,13 @@ def main() -> int:
 
     def stage_times(route):
         """Stage-synchronised host times of one route's stages, ms."""
-        stages = {}
+        timer = StageTimer()
 
         def timed(name, fn):
             torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t) * 1e3 / TIMED_SWEEPS
+            with timer.stage(name):
+                out = fn()
+                torch.cuda.synchronize()
             return out
 
         for _ in range(TIMED_SWEEPS):
@@ -2858,7 +2948,7 @@ def main() -> int:
             timed("match", lambda: match_descriptors(
                 fin.desc[0::2], fin.valid[0::2], fin.desc[1::2], fin.valid[1::2],
                 cfg.ratio_threshold, device=dev))
-        return stages
+        return {name: t * 1e3 / TIMED_SWEEPS for name, t in timer.totals.items()}
 
     # The stages too in turns; each route's two turns are averaged.
     st_turns = [stage_times(r) for r in ("front_twin", "front", "front", "front_twin")]

@@ -56,7 +56,8 @@ def main() -> int:
     ap.add_argument("--detector", default="port", choices=("port", "jax"))
     ap.add_argument("--draws", default="own", choices=("own", "jax"))
     args = ap.parse_args()
-    frames, _ = C.render_sequence(C.sfm_texture(), ts=C.sfm_sequences()["sweep-50"])
+    ev = C.port_script("torch_sfm_eval")
+    frames, _ = ev.render_sequence(ev.texture(), ts=C.sfm_sequences()["sweep-50"])
     uvs, pm = SP.detect_and_match(frames, torch.device("cpu"), args.detector)
     if args.draws == "jax":
         PG.sample_choice = SP.jax_draws

@@ -1,7 +1,8 @@
 """Spread of incremental SfM over RANSAC streams, the JAX package against the port.
 
-Renders one of ``chip_smoke.py``'s SfM sequences (sweep-50 or the 97-frame
-multi-pass loop, from CAVE-01 frame 00) and detects and matches it once,
+Renders one of ``scripts/torch_sfm_eval.py``'s SfM sequences (sweep-50,
+the there-and-back loop-49 or the 97-frame multi-pass loop, from CAVE-01
+frame 00) and detects and matches it once,
 with the port or (``--detector jax``) with the JAX package as its
 ``run_sfm`` does (float32, capacities 2048 / 1024 / 2048, match window 2).
 Then it runs ``run_sfm_from_matches`` on those matches at several seeds:
@@ -23,6 +24,8 @@ the sweep is the summary of ``--detector jax --packages jax --seeds
 
     python3 scripts/sfm_stream_spread.py [--sequence sweep-50] [--device cpu]
         [--packages jax,port] [--seeds 100:2200:100] [--detector port] [--draws own]
+
+``--sequence``: sweep-50, loop-49 or bigloop-97.
 
 The JAX side (``--packages jax``, ``--detector jax``, ``--draws jax``)
 needs JAX and runs on the CPU only; ``--packages port --device cuda``
@@ -107,7 +110,8 @@ def main() -> int:
     args = ap.parse_args()
     device = torch.device(args.device)
     start, stop, step = (int(x) for x in args.seeds.split(":"))
-    frames, gt = C.render_sequence(C.sfm_texture(), ts=C.sfm_sequences()[args.sequence])
+    ev = C.port_script("torch_sfm_eval")
+    frames, gt = ev.render_sequence(ev.texture(), ts=ev.sequences(C.SFM_FRAMES)[args.sequence])
     t = time.perf_counter()
     uvs, pm = detect_and_match(frames, device, args.detector)
     print(json.dumps(dict(sequence=args.sequence, device=device.type, detector=args.detector,
@@ -142,13 +146,13 @@ def main() -> int:
             res = run(seed)
             secs = time.perf_counter() - t
             reg = res.info["registered"]
-            centers = C.camera_centers(res.poses)
+            centers = ev.camera_centers(res.poses)
             ba = res.info.get("ba_reprune", res.info["ba"])["cost_trace"][-1]
             kept = res.info["n_obs"] - (res.info["pruned_obs"] if "ba_reprune" in res.info else 0)
             row = dict(package=package, seed=seed, registered=len(reg),
                        unregistered=sorted(set(range(len(frames))) - set(reg)),
-                       ate_pct=C.trajectory_metrics(centers, gt)["ate_pct_of_path"],
-                       registered_ate_pct=C.trajectory_metrics(centers[reg], gt[reg])["ate_pct_of_path"],
+                       ate_pct=ev.trajectory_metrics(centers, gt)["ate_pct_of_path"],
+                       registered_ate_pct=ev.trajectory_metrics(centers[reg], gt[reg])["ate_pct_of_path"],
                        ba_rms_px=float(np.sqrt(ba / kept)),
                        points=res.info["n_points"], pruned_obs=res.info.get("pruned_obs", 0),
                        seconds=secs)

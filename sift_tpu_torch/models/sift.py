@@ -297,7 +297,7 @@ def detect_and_describe(image, cfg: SiftConfig | None = None, device="cuda") -> 
     return detect_and_describe_batch(img[None], cfg, device=device).map(lambda a: a[0])
 
 
-def detect_fn(img, cfg: SiftConfig, octaves: int, device="cuda") -> Keypoints:
+def detect_fn(img, cfg: SiftConfig, octaves: int, device="cuda", return_counts: bool = False):
     """Detect + describe one (H, W[, C]) image through ``octaves`` octaves,
     as the JAX package's ``detect_fn`` (the function its ``parallel/``
     maps over a batch): the non-front route with the blur chain (kernel D
@@ -305,18 +305,21 @@ def detect_fn(img, cfg: SiftConfig, octaves: int, device="cuda") -> Keypoints:
     blur), extrema and Newton refinement of all octaves at ``cfg.kp_cap``,
     orientation and descriptors gathered from row-major ``MultiRows``
     (``build_multi_rows``, kernel H in float32 on the card), dedup.
-    Returns one (ori_cap,) buffer."""
+    Returns one (ori_cap,) buffer; with ``return_counts`` also the true
+    per-stage counts, as ``detect_and_describe_batch`` gives them for a
+    batch of one."""
     dev = resolve_device(device)
     img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img)
     initial = compute_initial_image(as_batch(img[None], cfg, dev), cfg)
     gaussians, dogs = build_pyramids(
         initial, dataclasses.replace(cfg, use_octave_kernel=False), octaves)
-    kp, _ = _detect_refine_fused(dogs, cfg, False)
+    kp, c_det = _detect_refine_fused(dogs, cfg, False)
     del dogs
     gsp = build_multi_rows([g[0] for g in gaussians])
     del gaussians
-    cand, _ = orient(gsp, kp, cfg)
-    return describe(gsp, dedup(cand, cfg), cfg).map(lambda a: a[0])
+    cand, c_ori = orient(gsp, kp, cfg)
+    out = describe(gsp, dedup(cand, cfg), cfg).map(lambda a: a[0])
+    return (out, {**c_det, **c_ori}) if return_counts else out
 
 
 def host_exact_sizes(kp: Keypoints, off0, cfg: SiftConfig) -> Keypoints:

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ast
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -34,7 +35,14 @@ def _imported_modules(path: pathlib.Path):
 
 # The port's scripts that run on the card beside chip_smoke.py.
 PORT_SCRIPTS = ["ab_blur_top2.py", "ab_cube_pack.py", "ab_twin_rows.py", "tune_octave_front.py",
-                "torch_parallel_match.py", "torch_scene_throughput.py", "torch_stream_breakdown.py"]
+                "torch_parallel_match.py", "torch_scene_throughput.py", "torch_stream_breakdown.py",
+                "torch_verify_scene_parity.py", "torch_sfm_eval.py", "torch_bench_scaling.py"]
+# The port's evaluation entry points, counterparts of the JAX package's
+# scripts/{verify_scene_parity,sfm_eval,bench_scaling}.py, and the
+# arguments with which each would start its work.
+EVAL_SCRIPTS = {"torch_verify_scene_parity.py": ["--limit", "1"], "torch_sfm_eval.py": [],
+                "torch_bench_scaling.py": []}
+FORBIDDEN = ("jax", "jaxlib", "sift_tpu", "__graft_entry__")
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -43,7 +51,42 @@ PORT_SCRIPTS = ["ab_blur_top2.py", "ab_cube_pack.py", "ab_twin_rows.py", "tune_o
 def test_no_jax_or_sift_tpu_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "sift_tpu"), f"{path.name} imports {mod}"
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+        # the JAX package's test modules (tests/test_*.py)
+        assert not top.startswith("test_") and top not in ("conftest", "tests"), \
+            f"{path.name} imports {mod}"
+
+
+@pytest.mark.parametrize("name", sorted(EVAL_SCRIPTS))
+def test_eval_script_help_leaves_jax_out(name):
+    """``--help`` of each evaluation script, after the script's own
+    imports, with none of JAX, the JAX package or ``__graft_entry__`` in
+    ``sys.modules``."""
+    path = ROOT / "scripts" / name
+    code = ("import runpy, sys\n"
+            f"sys.argv = [{str(path)!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout and out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("name", sorted(EVAL_SCRIPTS))
+def test_eval_scripts_default_to_cuda_and_raise_without_it(name):
+    """Each evaluation script runs on the card unless asked for the CPU,
+    and without a card raises before it starts its work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    spec = importlib.util.spec_from_file_location(name[:-3], ROOT / "scripts" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(EVAL_SCRIPTS[name])
 
 
 def test_fresh_import_leaves_jax_out():
