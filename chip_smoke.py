@@ -74,7 +74,19 @@ classified), ``scripts/torch_sfm_eval.py --frames 8`` (its four lines and
 its table; all 8 frames of the sweep registered) and
 ``scripts/torch_bench_scaling.py`` at world size 1 (a well-formed line,
 nothing clipped, frame 0's keypoints bit-equal to a direct ``detect_fn``
-call, kernels D and H launched).  Then incremental SfM: kernels D, F and
+call, kernels D and H launched), and the counterparts of the JAX
+package's last four tools (``jax_tool_scripts``):
+``scripts/torch_bench_match_ab.py --reps 5`` (kernel B at 2048-32768
+descriptors a side, bit-equal to its plain version wherever that ran, an
+OOM the only failure allowed off the kernel path),
+``scripts/torch_perf_breakdown.py --reps 5 --out FILE`` (every row of the
+JAX script at ``SiftConfig()``'s capacities, the stage chain bit-equal to
+the entry point, A, B, C, D, E and F launched),
+``scripts/torch_sfm_ablate.py`` (sweep-16 and loop-15, verification off
+and on; D and F for every frame, B for every pair) and
+``scripts/torch_sfm_pgo_debug.py`` (the 97-frame loop's base, after-PGO
+and after-refine-BA metrics, a closure, the refine BA registering at
+least the base's frames).  Then incremental SfM: kernels D, F and
 B against their plain versions at its shapes (phase
 ``sfm_kernels_vs_plain``), and (phase ``sfm``) ``run_sfm`` on the card
 on the JAX package's rendered evaluation sequences (rendered and measured
@@ -1683,6 +1695,135 @@ def run_tool(args, what):
     return [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")], wall
 
 
+MATCH_SWEEP = (2048, 8192, 16384, 32768)  # scripts/bench_match_ab.py's sizes
+TOOL_REPS = 5
+
+
+def jax_tool_scripts():
+    """The port's counterparts of the JAX package's last four tool scripts,
+    each run on the card as a user runs it and held to its gates:
+
+    * ``torch_bench_match_ab.py --reps 5``: a ``kernel`` line with kernel
+      B launched at each of ``MATCH_SWEEP``; ``kernel`` bit-equal to
+      ``plain`` (idx, accept, best, second) at 4096 and at every size
+      where ``plain`` ran; a ``plain`` or ``library`` size that failed
+      failed for the card's memory, and is named.
+    * ``torch_perf_breakdown.py --reps 5 --out FILE``: every row of the JAX
+      script, finite; the stage chain's keypoints bit-equal to
+      ``detect_and_describe_batch`` on the same 8 frames; kernels A, C, D,
+      E, F and B launched; the table headed by the card's name and power
+      limit.
+    * ``torch_sfm_ablate.py``: sweep-16 and loop-15 with verification off
+      and on, finite metrics; D once and F once an octave for every frame,
+      B once a pair.
+    * ``torch_sfm_pgo_debug.py``: the base, after-PGO and after-refine-BA
+      metrics finite, at least one closure pair, the refine BA registering
+      at least the base solve's frames.
+
+    Returns (the phase line's record, the scripts' launches summed)."""
+    import numpy as np
+
+    from sift_tpu_torch import SiftConfig
+
+    def finite(rec, keys):
+        return all(np.isfinite(rec[k]) for k in keys)
+
+    lines, match_s = run_tool(["torch_bench_match_ab.py", "--reps", str(TOOL_REPS)],
+                              "the matcher sweep")
+    timed = [r for r in lines if "path" in r]
+    kern = {r["n"]: r for r in timed if r["path"] == "kernel"}
+    need(sorted(kern) == list(MATCH_SWEEP) and all(r["launches"] > 0 and "error" not in r
+                                                   for r in kern.values()),
+         f"the matcher sweep's kernel lines: {kern}")
+    errors = [r for r in timed if "error" in r]
+    failed = [(r["n"], r["path"]) for r in errors]
+    need(all(r["path"] in ("plain", "library") and r["error"].startswith("OutOfMemoryError")
+             for r in errors), f"the matcher sweep: a failure other than the card's memory: {errors}")
+    ran_plain = sorted(r["n"] for r in timed if r["path"] == "plain" and "error" not in r)
+    agree = lines[-1]
+    need(agree.get("agreement_4096") is True
+         and all(agree["agreement"].get(str(n)) is True for n in ran_plain),
+         f"the matcher sweep's agreement {agree}, plain ran at {ran_plain}")
+    bounds = {r["n"]: r for r in lines if "bound_ms" in r}
+    sweep = {str(n): dict(launches=kern[n]["launches"], bound_ms=bounds[n]["bound_ms"],
+                          bound_by=bounds[n]["bound_by"], kernel_min_ms=kern[n]["min_ms"],
+                          **{f"{r['path']}_ms": r.get("median_ms") for r in timed if r["n"] == n})
+             for n in MATCH_SWEEP}
+
+    bd = port_script("torch_perf_breakdown")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "breakdown.md"
+        lines, bd_s = run_tool(["torch_perf_breakdown.py", "--reps", str(TOOL_REPS), "--out",
+                                str(out)], "the stage breakdown")
+        table = out.read_text()
+    rows = [r for r in lines if "row" in r]
+    summary = next(r for r in lines if "chain_equal_entry_point" in r)
+    total = lines[-1]
+    need([r["jax_row"] for r in rows if r["jax_row"]] == bd.jax_rows(8)
+         and all(finite(r, ("median_ms", "min_ms")) for r in rows),
+         f"the breakdown's rows: {[(r['row'], r['median_ms']) for r in rows]}")
+    need(summary["chain_equal_entry_point"] is True and summary["route"] == "front_twin",
+         f"the breakdown's stage chain against the entry point: {summary}")
+    bl = summary["launches"]
+    need(all(bl[k] > 0 for k in ("octave_front", "octave_blur", "blur_pass", "twin_rows",
+                                 "octave_front_twin", "top2")), f"the breakdown's launches {bl}")
+    need(total.get("batch") == 8 and np.isfinite(total["stage_total_ms_median"]),
+         f"the breakdown's last line {total}")
+    need(table.startswith(f"# PERF — per-stage breakdown ({smi_line()})") and "TPU" not in table,
+         f"the breakdown's table header: {table.splitlines()[0]}")
+
+    s_oct = SiftConfig(**SFM_CAPS).octaves_count(2 * 320, 2 * 240)
+    recs, ablate_s = run_tool(["torch_sfm_ablate.py"], "the SfM ablation")
+    need([(r["seq"], r["verify"]) for r in recs]
+         == [("sweep-16", "off"), ("sweep-16", "on"), ("loop-15", "off"), ("loop-15", "on")],
+         f"the SfM ablation's lines {[(r['seq'], r['verify']) for r in recs]}")
+    metric_keys = ("ate_rmse_m", "rpe_rmse_m", "ate_pct_of_path")
+    for r in recs:
+        got = r["launches"]
+        need(finite(r, metric_keys), f"the SfM ablation's metrics: {r}")
+        need(got["blur_pass"] == r["frames"] and got["octave_front_twin"] == s_oct * r["frames"]
+             and got["top2"] == r["pairs"], f"the SfM ablation's launches, {r['seq']}: {got}")
+
+    lines, pgo_s = run_tool(["torch_sfm_pgo_debug.py"], "the loop-closure debug")
+    stages = {r["stage"]: r for r in lines}
+    base, pgo, refine = (stages[k] for k in ("base", "after PGO", "after refine BA"))
+    need(all(finite(r, metric_keys) for r in (base, pgo, refine)),
+         f"the loop-closure debug's metrics: {base}, {pgo}, {refine}")
+    need(len(stages["closures"]["closures"]) >= 1,
+         f"the loop-closure debug found no closure: {stages['closures']}")
+    need(refine["registered"] >= base["registered"],
+         f"the refine BA registered {refine['registered']}, the base {base['registered']}")
+
+    launches = {k: bl[k] + refine["launches"][k]
+                + sum(r["launches"][k] for r in recs[::2])  # a sequence's, on both its lines
+                + sum(r["sfm_launches"][k] for r in recs) for k in bl}
+    launches["top2"] += sum(r["launches"] for r in kern.values())
+    rec = dict(
+        match_ab=dict(command=f"scripts/torch_bench_match_ab.py --reps {TOOL_REPS}",
+                      wall_s=match_s, sizes=sweep, failed=failed, agreement=agree["agreement"]),
+        breakdown=dict(command=f"scripts/torch_perf_breakdown.py --reps {TOOL_REPS} --out FILE",
+                       wall_s=bd_s, rows={r["row"]: [r["median_ms"], r["min_ms"]] for r in rows},
+                       stage_total_ms_median=total["stage_total_ms_median"],
+                       frames_per_s_equiv=summary["frames_per_s_equiv"],
+                       keypoints=summary["keypoints"], capacities=summary["capacities"],
+                       chain_equal_entry_point=True, launches=bl),
+        ablate=dict(command="scripts/torch_sfm_ablate.py", wall_s=ablate_s,
+                    lines=[{k: r[k] for k in ("seq", "verify", "frames", "registered", "pairs",
+                                              "ate_pct_of_path", "rpe_rmse_m", "seconds",
+                                              "points", "obs", "pruned", "launches")}
+                           for r in recs]),
+        pgo_debug=dict(command="scripts/torch_sfm_pgo_debug.py", wall_s=pgo_s,
+                       frames=base["frames"], closures=stages["closures"]["closures"],
+                       candidates=len(stages["closures"]["candidates"]),
+                       stages={k: {f: r.get(f) for f in ("ate_pct_of_path", "rpe_rmse_m",
+                                                         "registered", "points", "pruned",
+                                                         "seconds")}
+                               for k, r in (("base", base), ("after PGO", pgo),
+                                            ("after refine BA", refine))},
+                       launches=refine["launches"]))
+    return rec, launches
+
+
 def tools_phase(dev, smi, scene_kp, chain_n, octaves, zero_counts, read_counts):
     """Phase ``tools``: the port's three evaluation scripts on the card as a
     user runs them, each held to what the earlier phases established.
@@ -1788,8 +1929,9 @@ def tools_phase(dev, smi, scene_kp, chain_n, octaves, zero_counts, read_counts):
          and all(row["launches"][k] == pdb * direct[k] for k in ("blur_pass", "twin_rows_2d")),
          f"scaling launches: rank {row['launches']}, a direct call {direct}")
 
+    scripts, script_launches = jax_tool_scripts()
     launches = {k: summary["launches"][k] + sum(r["launches"][k] for r in recs)
-                + row["launches"][k] for k in summary["launches"]}
+                + row["launches"][k] + script_launches[k] for k in summary["launches"]}
     emit(dict(phase="tools", nvidia_smi=smi,
               audit=dict(command=f"scripts/torch_verify_scene_parity.py --caps {caps} --provenance",
                          wall_s=audit_s, anchor=anchor, summary=summary,
@@ -1804,7 +1946,7 @@ def tools_phase(dev, smi, scene_kp, chain_n, octaves, zero_counts, read_counts):
                        table_rows=len(names)),
               scaling=dict(command="scripts/torch_bench_scaling.py", wall_s=scaling_s, line=line,
                            frame0_bit_equal_detect_fn=True, direct_launches=direct),
-              launches=launches, phase_s=time.perf_counter() - t_phase))
+              **scripts, launches=launches, phase_s=time.perf_counter() - t_phase))
     return launches
 
 

@@ -24,8 +24,14 @@ the sweep is the summary of ``--detector jax --packages jax --seeds
 
     python3 scripts/sfm_stream_spread.py [--sequence sweep-50] [--device cpu]
         [--packages jax,port] [--seeds 100:2200:100] [--detector port] [--draws own]
+        [--threads N]
 
-``--sequence``: sweep-50, loop-49 or bigloop-97.
+``--sequence``: sweep-50, loop-49 or bigloop-97.  ``--threads N`` runs
+the host's work on N threads: the process keeps only the first N of the
+CPUs it may use (the JAX package's CPU client sizes its thread pool by
+them) and PyTorch's intra-op pool takes N threads.  Float32 reductions on
+the host may group differently at another thread count, so the header
+line names both packages' counts and a digest of the matches.
 
 The JAX side (``--packages jax``, ``--detector jax``, ``--draws jax``)
 needs JAX and runs on the CPU only; ``--packages port --device cuda``
@@ -35,6 +41,7 @@ needs a card and no JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -83,6 +90,25 @@ def detect_and_match(frames, device, detector):
     return uvs, pm
 
 
+def matches_digest(uvs, pm) -> str:
+    """SHA-256 of the keypoints' float32 bytes and the window matches."""
+    h = hashlib.sha256()
+    for uv in uvs:
+        h.update(np.ascontiguousarray(uv, np.float32).tobytes())
+    for key in sorted(pm):
+        h.update(np.asarray(key, np.int64).tobytes())
+        h.update(np.ascontiguousarray(pm[key], np.int64).tobytes())
+    return h.hexdigest()
+
+
+def set_threads(n):
+    """Keep the first ``n`` CPUs this process may use and give PyTorch ``n``
+    intra-op threads; before the JAX package's first computation, when its
+    CPU client sizes its pool by the CPUs it may use."""
+    os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[:n])
+    torch.set_num_threads(n)
+
+
 def jax_draws(valid, num_hypotheses, m, seed=0):
     """The (K, m) indices the JAX package's RANSAC functions draw for
     ``seed`` (``jax.random.choice`` with p = valid / valid.sum(), x64 off),
@@ -107,7 +133,11 @@ def main() -> int:
     ap.add_argument("--seeds", default="100:2200:100")
     ap.add_argument("--detector", default="port", choices=("port", "jax"))
     ap.add_argument("--draws", default="own", choices=("own", "jax"))
+    ap.add_argument("--threads", type=int, default=None,
+                    help="host threads for both packages (default: all the process may use)")
     args = ap.parse_args()
+    if args.threads:
+        set_threads(args.threads)
     device = torch.device(args.device)
     start, stop, step = (int(x) for x in args.seeds.split(":"))
     ev = C.port_script("torch_sfm_eval")
@@ -117,7 +147,12 @@ def main() -> int:
     print(json.dumps(dict(sequence=args.sequence, device=device.type, detector=args.detector,
                           name=(torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"),
                           nvidia_smi=(C.smi_line() if device.type == "cuda" else None),
-                          detect_match_s=time.perf_counter() - t, pairs=len(pm))), flush=True)
+                          detect_match_s=time.perf_counter() - t, pairs=len(pm),
+                          matches=int(sum(len(m) for m in pm.values())),
+                          matches_sha256=matches_digest(uvs, pm),
+                          torch_threads=torch.get_num_threads(),
+                          host_cpus=len(os.sched_getaffinity(0)),
+                          xla_flags=os.environ.get("XLA_FLAGS", ""))), flush=True)
     k = np.array(C.SFM_K)
     runs = {}
     for package in args.packages.split(","):

@@ -14,7 +14,11 @@ GEMM), and the camera system is one GEMM over the points' per-camera
 blocks.  So two runs of the same problem on the card give the same bits,
 and the host-controlled LM loop takes the same accept / reject branches.
 The order differs from the JAX package's sequential scatter, so the two
-agree to rounding, not bit for bit.
+agree to rounding, not bit for bit.  On the CPU a GEMM splits its long
+inner dimension (the observations, the points) over threads, so its
+rounding would follow the thread count; there the camera sums and the
+camera system are the JAX package's sequential scatters instead
+(``index_add_`` in row order), the same bits at any thread count.
 
 Observation layout: a flat observation table (cam_idx, pt_idx, uv) plus a
 per-point fixed-capacity index table obs_by_point (P, F) into it (-1 pads),
@@ -193,6 +197,15 @@ def _cam_onehot(pr: BAProblem, dtype) -> torch.Tensor:
     return (pr.obs_cam[None, :] == torch.arange(c, device=pr.obs_cam.device)[:, None]).to(dtype)
 
 
+def _scatter_rows(idx: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of ``x`` (R, ...) summed into ``n`` bins by ``idx`` (R,), one
+    row after another in row order (``jax.ops.segment_sum``'s order on the
+    CPU), whatever the thread count."""
+    flat = x.reshape(x.shape[0], -1)
+    out = torch.zeros((n, flat.shape[1]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, idx, flat).reshape(n, *x.shape[1:])
+
+
 def _schur_parts(pr: BAProblem, jc, jp, r, lam):
     """The observation sums of the damped, Schur-reduced camera system.
 
@@ -210,9 +223,14 @@ def _schur_parts(pr: BAProblem, jc, jp, r, lam):
     g_c_o = torch.einsum("oki,ok->oi", jc, r)     # (O, 6)
     g_p_o = torch.einsum("oki,ok->oi", jp, r)     # (O, 3)
 
-    onehot = _cam_onehot(pr, dtype)  # (C, O)
-    u = (onehot @ jtj_c.reshape(-1, 36)).reshape(c, 6, 6)
-    g_c = -(onehot @ g_c_o)
+    cpu = jc.device.type == "cpu"
+    if cpu:  # the order of a CPU GEMM follows the thread count (module doc)
+        u = _scatter_rows(pr.obs_cam, jtj_c, c)
+        g_c = -_scatter_rows(pr.obs_cam, g_c_o, c)
+    else:
+        onehot = _cam_onehot(pr, dtype)  # (C, O)
+        u = (onehot @ jtj_c.reshape(-1, 36)).reshape(c, 6, 6)
+        g_c = -(onehot @ g_c_o)
     v = _by_point(jtj_p, tbl).sum(1)   # (P, 3, 3)
     g_p = -_by_point(g_p_o, tbl).sum(1)  # (P, 3)
 
@@ -226,17 +244,26 @@ def _schur_parts(pr: BAProblem, jc, jp, r, lam):
     cam_of = pr.obs_cam[tbl.clamp(min=0)]  # (P, F)
     y = torch.einsum("pfij,pjk->pfik", w, v_inv)  # (P, F, 6, 3)
 
-    # sum_p sum_{a,b} Y_pa W_pb^T at (cam_a, cam_b): each point's blocks
-    # placed at their cameras ((P, C, 6, 3); a pad's blocks are zero), then
-    # one product over points and their 3 columns.
-    member = (cam_of[:, :, None] == torch.arange(c, device=cam_of.device)).to(dtype)  # (P, F, C)
-    y_c = torch.einsum("pfc,pfij->cipj", member, y).reshape(c * 6, -1)
-    w_c = torch.einsum("pfc,pfij->cipj", member, w).reshape(c * 6, -1)
-    yw = (y_c @ w_c.T).reshape(c, 6, c, 6)
-
-    # sum_p Y_pa g_p at cam_a
+    # sum_p sum_{a,b} Y_pa W_pb^T at (cam_a, cam_b) and sum_p Y_pa g_p at
+    # cam_a (a pad's blocks are zero).
     rhs_contrib = torch.einsum("pfij,pj->pfi", y, g_p)  # (P, F, 6)
-    yg = torch.einsum("pfc,pfi->ci", member, rhs_contrib)
+    if cpu:  # each point's (a, b) blocks scattered in (p, a, b) order; a pad's
+        # blocks are zeros, and adding a zero leaves a sum's bits as they are
+        valid = tbl >= 0
+        p_i, a_i, b_i = torch.nonzero(valid[:, :, None] & valid[:, None, :], as_tuple=True)
+        ya = y[p_i, a_i][:, :, None, :]  # (N, 6, 1, 3)
+        wb = w[p_i, b_i][:, None, :, :]  # (N, 1, 6, 3)
+        blocks = ya[..., 0] * wb[..., 0] + ya[..., 1] * wb[..., 1] + ya[..., 2] * wb[..., 2]
+        pair = cam_of[p_i, a_i] * c + cam_of[p_i, b_i]
+        yw = _scatter_rows(pair, blocks, c * c).reshape(c, c, 6, 6).permute(0, 2, 1, 3)
+        yg = _scatter_rows(cam_of.reshape(-1), rhs_contrib.reshape(-1, 6), c)
+    else:  # each point's blocks placed at their cameras ((P, C, 6, 3)),
+        # then one product over points and their 3 columns
+        member = (cam_of[:, :, None] == torch.arange(c, device=cam_of.device)).to(dtype)
+        y_c = torch.einsum("pfc,pfij->cipj", member, y).reshape(c * 6, -1)
+        w_c = torch.einsum("pfc,pfij->cipj", member, w).reshape(c * 6, -1)
+        yw = (y_c @ w_c.T).reshape(c, 6, c, 6)
+        yg = torch.einsum("pfc,pfi->ci", member, rhs_contrib)
     return u, g_c, yw, yg, v_inv, w, cam_of, g_p
 
 

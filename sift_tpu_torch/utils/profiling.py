@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import time
 from collections import defaultdict
 
@@ -58,6 +59,28 @@ class StageTimer:
 
     def report(self) -> str:
         return json.dumps(self.summary(), indent=2)
+
+
+def time_calls(fn, reps: int, calls: int = 8):
+    """(median, min) seconds of one call of ``fn``, and its last result: one
+    warm-up call, then ``reps`` rounds of ``calls`` calls in a row, each
+    round closed by a wait for the card (where there is one) and divided by
+    ``calls``.  The JAX package's tool scripts time the same way, with a
+    host read of the last result as the fence."""
+    def wait():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    out = fn()
+    wait()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = fn()
+        wait()
+        ts.append((time.perf_counter() - t0) / calls)
+    return statistics.median(ts), min(ts), out
 
 
 @contextlib.contextmanager

@@ -187,6 +187,53 @@ def test_ba_converges_and_is_deterministic():
     assert torch.equal(cams2, cams) and torch.equal(pts2, pts)
 
 
+@pytest.mark.parametrize("threads", [1, 2, 4, 8])
+def test_schur_sums_on_the_cpu_are_the_jax_scatter_at_any_thread_count(threads):
+    """On the CPU the sums per camera (U, g_c, sum_p Y_pa g_p) and the
+    camera system (sum_p Y_pa W_pb^T, each 6 x 6 block a sum of three
+    products) are scatters in row order: the JAX package's ``segment_sum``
+    / ``.at[].add`` order, which ``np.add.at`` reproduces, bit for bit at
+    every thread count.  A CPU GEMM splits its
+    inner dimension over threads, and its bits followed the thread count
+    (the loop-49 SfM stream at seed 0 read 3.87% ATE at one thread and
+    14.05% at four).  Float32, Huber-weighted Jacobians, lambda 1e-3.
+    Tolerance: none."""
+    _, pp = both("float32")
+    r, jc, jp = PB._jacobians(pp, pp.cams, pp.points)
+    sw = PB._huber_sqrt_weights(r, 3.0)
+    r, jc, jp = r * sw[:, None], jc * sw[:, None, None], jp * sw[:, None, None]
+    old = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        u, g_c, yw, yg, v_inv, w, cam_of, g_p = PB._schur_parts(
+            pp, jc, jp, r, torch.tensor(1e-3, dtype=torch.float32))
+    finally:
+        torch.set_num_threads(old)
+    c, (p, f) = pp.cams.shape[0], pp.obs_by_point.shape
+
+    def scatter(idx, rows, n):
+        out = np.zeros((n, rows.shape[1]), np.float32)
+        np.add.at(out, idx, rows)
+        return out
+
+    cams = pp.obs_cam.numpy()
+    want_u = scatter(cams, torch.einsum("oki,okj->oij", jc, jc).reshape(-1, 36).numpy(), c)
+    want_g = -scatter(cams, torch.einsum("oki,ok->oi", jc, r).numpy(), c)
+    y = torch.einsum("pfij,pjk->pfik", w, v_inv)
+    ya, wb = y.numpy()[:, :, None, :, None, :], w.numpy()[:, None, :, None, :, :]
+    blocks = (ya[..., 0] * wb[..., 0] + ya[..., 1] * wb[..., 1]
+              + ya[..., 2] * wb[..., 2]).reshape(-1, 36)  # (P, F, F, 6, 6): pads too
+    pair = (cam_of[:, :, None] * c + cam_of[:, None, :]).reshape(-1).numpy()
+    want_yw = scatter(pair, blocks, c * c).reshape(c, c, 6, 6).transpose(0, 2, 1, 3)
+    want_yg = scatter(cam_of.reshape(-1).numpy(),
+                      torch.einsum("pfij,pj->pfi", y, g_p).reshape(-1, 6).numpy(), c)
+    assert pp.obs_cam.shape[0] > 1500 and (p, f) == (400, 5)
+    np.testing.assert_array_equal(u.reshape(c, 36).numpy(), want_u)
+    np.testing.assert_array_equal(g_c.numpy(), want_g)
+    np.testing.assert_array_equal(yw.numpy(), want_yw)
+    np.testing.assert_array_equal(yg.numpy(), want_yg)
+
+
 def test_cost_and_huber_weights_match_jax():
     """``_cost`` with and without the Huber loss and the IRLS weights, on
     residuals up to 40 px.  Tolerance: relative 1e-12 (float64)."""

@@ -36,12 +36,17 @@ def _imported_modules(path: pathlib.Path):
 # The port's scripts that run on the card beside chip_smoke.py.
 PORT_SCRIPTS = ["ab_blur_top2.py", "ab_cube_pack.py", "ab_twin_rows.py", "tune_octave_front.py",
                 "torch_parallel_match.py", "torch_scene_throughput.py", "torch_stream_breakdown.py",
-                "torch_verify_scene_parity.py", "torch_sfm_eval.py", "torch_bench_scaling.py"]
-# The port's evaluation entry points, counterparts of the JAX package's
-# scripts/{verify_scene_parity,sfm_eval,bench_scaling}.py, and the
+                "torch_verify_scene_parity.py", "torch_sfm_eval.py", "torch_bench_scaling.py",
+                "torch_bench_match_ab.py", "torch_perf_breakdown.py", "torch_sfm_ablate.py",
+                "torch_sfm_pgo_debug.py"]
+# The port's evaluation entry points and tools, counterparts of the JAX
+# package's scripts/{verify_scene_parity,sfm_eval,bench_scaling,
+# bench_match_ab,perf_breakdown,sfm_ablate,sfm_pgo_debug}.py, and the
 # arguments with which each would start its work.
 EVAL_SCRIPTS = {"torch_verify_scene_parity.py": ["--limit", "1"], "torch_sfm_eval.py": [],
-                "torch_bench_scaling.py": []}
+                "torch_bench_scaling.py": [], "torch_bench_match_ab.py": [],
+                "torch_perf_breakdown.py": [], "torch_sfm_ablate.py": [],
+                "torch_sfm_pgo_debug.py": []}
 FORBIDDEN = ("jax", "jaxlib", "sift_tpu", "__graft_entry__")
 
 
