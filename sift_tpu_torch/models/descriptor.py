@@ -35,6 +35,7 @@ from sift_tpu_torch.ops.gather import (
     lut,
     radius_classes,
 )
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -150,7 +151,8 @@ def _lane_args(sp, kp: Keypoints, cfg: SiftConfig, octave_of_volume):
     n = kp.x.shape[1]
     dtype = kp.x.dtype
     octaves = len(sp.shapes)
-    lanes = kp.valid.reshape(-1).nonzero()[:, 0]
+    with profiling.span("sift.sync.lanes"):
+        lanes = kp.valid.reshape(-1).nonzero()[:, 0]
     img = lanes // n
     kx, ky, ksize, kpori, koct, klayer = (
         a.reshape(-1)[lanes] for a in (kp.x, kp.y, kp.size, kp.pori, kp.octave, kp.layer)
@@ -203,7 +205,7 @@ def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
     if len(lanes):
         desc[lanes] = by_radius_class(
             args[_RADIUS], desc_radius_classes(cfg, classes), chunk, args,
-            lambda a, r: _descriptors(sp, *a, r, fast))
+            lambda a, r: _descriptors(sp, *a, r, fast), stage="describe")
     return desc.reshape(bsz, n, 128)
 
 

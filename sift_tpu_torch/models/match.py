@@ -13,6 +13,7 @@ from fractions import Fraction
 import torch
 
 from sift_tpu_torch.ops.top2 import HUGE_D2, top2
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import resolve_device
 
 
@@ -57,13 +58,14 @@ def match_descriptors(desc1, valid1, desc2, valid2, ratio_threshold: float = 0.7
     First index wins ties; duplicates of the best count as second best.
     """
     dev = resolve_device(device)
-    d1, v1, d2, v2 = (torch.as_tensor(a).to(dev) for a in (desc1, valid1, desc2, valid2))
-    single = d1.dim() == 2
-    if single:
-        d1, v1, d2, v2 = d1[None], v1[None], d2[None], v2[None]
-    best, second, idx = top2(
-        d1.to(torch.uint8).contiguous(), d2.to(torch.uint8).contiguous(), v2.bool()
-    )
-    accept = ratio_accept(best, second, v1.bool(), ratio_threshold)
-    out = (idx, accept, best, second)
+    with profiling.span("sift.match"):
+        d1, v1, d2, v2 = (torch.as_tensor(a).to(dev) for a in (desc1, valid1, desc2, valid2))
+        single = d1.dim() == 2
+        if single:
+            d1, v1, d2, v2 = d1[None], v1[None], d2[None], v2[None]
+        best, second, idx = top2(
+            d1.to(torch.uint8).contiguous(), d2.to(torch.uint8).contiguous(), v2.bool()
+        )
+        accept = ratio_accept(best, second, v1.bool(), ratio_threshold)
+        out = (idx, accept, best, second)
     return tuple(o[0] for o in out) if single else out

@@ -30,6 +30,7 @@ from sift_tpu_torch.ops.gather import (
     lut,
     radius_classes,
 )
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
 
@@ -99,7 +100,8 @@ def _lane_args(sp, kp: Keypoints, cfg: SiftConfig, octave_of_volume):
     wl, hl)."""
     n = kp.x.shape[1]
     octaves = len(sp.shapes)
-    lanes = kp.valid.reshape(-1).nonzero()[:, 0]
+    with profiling.span("sift.sync.lanes"):
+        lanes = kp.valid.reshape(-1).nonzero()[:, 0]
     img = lanes // n
 
     def pick(a):
@@ -151,7 +153,7 @@ def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
     if len(lanes):
         hist = by_radius_class(
             args[_RADIUS], ori_radius_classes(cfg, classes), chunk, args,
-            lambda a, r: _histograms(sp, *a, nb, r, fast))
+            lambda a, r: _histograms(sp, *a, nb, r, fast), stage="orient")
     else:
         hist = torch.zeros((0, nb), dtype=dtype, device=dev)
 

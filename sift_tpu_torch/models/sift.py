@@ -76,7 +76,7 @@ from sift_tpu_torch.ops.gather import (
 from sift_tpu_torch.ops.octave_front import front_twin_strip
 from sift_tpu_torch.ops.twin_rows import twin_rows_strips
 from sift_tpu_torch.utils import keypoints as kputil
-from sift_tpu_torch.utils import native
+from sift_tpu_torch.utils import native, profiling
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import resolve_device
 
@@ -96,7 +96,11 @@ def as_batch(images, cfg: SiftConfig, device) -> torch.Tensor:
     imgs = images if torch.is_tensor(images) else torch.as_tensor(np.asarray(images))
     if imgs.dtype.itemsize > cfg.dtype.itemsize:
         imgs = imgs.to(cfg.dtype)
-    imgs = imgs.to(resolve_device(device)).to(cfg.dtype)
+    dev = resolve_device(device)
+    if imgs.device.type != dev.type:  # a copy from host memory waits for the card
+        with profiling.span("sift.sync.upload"):
+            imgs = imgs.to(dev)
+    imgs = imgs.to(dev).to(cfg.dtype)
     if imgs.dim() == 3:  # grayscale batch: make the channel explicit
         imgs = imgs[..., None]
     return imgs
@@ -143,8 +147,9 @@ def gather_space(stacks, twin_rows: bool):
 def front(imgs: torch.Tensor, cfg: SiftConfig, octaves: int | None = None):
     """Front route, stage 1: (gaussians, dogs, masks, counts), per-octave
     lists.  ``octaves``: the pyramid's depth (default ``octaves_for``)."""
-    initial = compute_initial_image(imgs, cfg)
-    return front_pyramids(initial, cfg, octaves or octaves_for(imgs, cfg))
+    with profiling.span("sift.front"):
+        initial = compute_initial_image(imgs, cfg)
+        return front_pyramids(initial, cfg, octaves or octaves_for(imgs, cfg))
 
 
 def front_twin_plan(cfg: SiftConfig, octaves: int, h1: int, w1: int,
@@ -189,31 +194,35 @@ def front_twin(imgs: torch.Tensor, cfg: SiftConfig, plan: FrontTwinPlan | None =
     masks, counts).  ``plan``: a layout other than ``front_twin_plan``'s
     (callers that stage the route by hand, to send octaves through the
     fallback); ``octaves``: as for ``front``."""
-    initial = compute_initial_image(imgs, cfg)
-    if plan is None:
-        plan = front_twin_plan(cfg, octaves or octaves_for(imgs, cfg), *initial.shape[1:])
-    return front_twin_pyramids(initial, cfg, plan)
+    with profiling.span("sift.front_twin"):
+        initial = compute_initial_image(imgs, cfg)
+        if plan is None:
+            plan = front_twin_plan(cfg, octaves or octaves_for(imgs, cfg), *initial.shape[1:])
+        return front_twin_pyramids(initial, cfg, plan)
 
 
 def pyramids(imgs: torch.Tensor, cfg: SiftConfig, octaves: int | None = None):
     """Non-front route, stage 1: (gaussians, dogs), per-octave lists;
     ``octaves``: as for ``front``."""
-    initial = compute_initial_image(imgs, cfg)
-    return build_pyramids(initial, cfg, octaves or octaves_for(imgs, cfg))
+    with profiling.span("sift.pyramids"):
+        initial = compute_initial_image(imgs, cfg)
+        return build_pyramids(initial, cfg, octaves or octaves_for(imgs, cfg))
 
 
 def detect_refine(dog_space, masks, counts, cfg: SiftConfig):
     """Front and front-twin routes, stage 2: (keypoints (B, kp_cap), counts
     dict), refined over a gather space of the DoGs (the front-twin route's
     ``CubeRows``, the front route's ``StackSpace``)."""
-    return _refine(dog_space, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
+    with profiling.span("sift.detect_refine"):
+        return _refine(dog_space, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
 
 
 def _detect_refine_fused(dogs, cfg: SiftConfig, twin_rows: bool):
     """Non-front route, stage 2: same contract as ``detect_refine``;
     ``twin_rows``: refine from kernel E's twin rows of the DoGs."""
-    return _refine(gather_space(dogs, twin_rows), *detect_extrema_all(
-        dogs, cfg.extremum_threshold(), cfg.extrema_cap, cfg.window_size), cfg)
+    with profiling.span("sift.detect_refine"):
+        return _refine(gather_space(dogs, twin_rows), *detect_extrema_all(
+            dogs, cfg.extremum_threshold(), cfg.extrema_cap, cfg.window_size), cfg)
 
 
 def _refine(space, oct_id, zyx, valid, n_ext, cfg: SiftConfig):
@@ -227,21 +236,24 @@ def _refine(space, oct_id, zyx, valid, n_ext, cfg: SiftConfig):
 
 def orient(gsp, kp: Keypoints, cfg: SiftConfig):
     """Stage 3: (candidates (B, ori_cap), counts dict)."""
-    cand, max_peaks = orient_all(gsp, kp, cfg)
-    n_cand = cand.valid.sum(-1, dtype=torch.int32)
-    return kputil.compact(cand, cfg.ori_cap), dict(
-        oriented=n_cand, ori_slots_max=max_peaks
-    )
+    with profiling.span("sift.orient"):
+        cand, max_peaks = orient_all(gsp, kp, cfg)
+        n_cand = cand.valid.sum(-1, dtype=torch.int32)
+        return kputil.compact(cand, cfg.ori_cap), dict(
+            oriented=n_cand, ori_slots_max=max_peaks
+        )
 
 
 def dedup(cand: Keypoints, cfg: SiftConfig) -> Keypoints:
     """Stage 4: clean_keypoints (sort + unique), compacted to ori_cap."""
-    return kputil.dedup_compact(cand, cfg.ori_cap)
+    with profiling.span("sift.dedup"):
+        return kputil.dedup_compact(cand, cfg.ori_cap)
 
 
 def describe(gsp, allkp: Keypoints, cfg: SiftConfig) -> Keypoints:
     """Stage 5: the final buffer with descriptors."""
-    return dataclasses.replace(allkp, desc=compute_descriptors_all(gsp, allkp, cfg))
+    with profiling.span("sift.describe"):
+        return dataclasses.replace(allkp, desc=compute_descriptors_all(gsp, allkp, cfg))
 
 
 def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
@@ -255,8 +267,9 @@ def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
     means real detections were clipped.
     """
     cfg = cfg or SiftConfig()
-    imgs = as_batch(images, cfg, device)
-    out, counts = run_route(imgs, cfg, route_of(cfg, imgs.device))
+    with profiling.span("sift.entry"):
+        imgs = as_batch(images, cfg, device)
+        out, counts = run_route(imgs, cfg, route_of(cfg, imgs.device))
     return (out, counts) if return_counts else out
 
 

@@ -31,6 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from sift_tpu_torch.utils import profiling
+
 
 def compact_mask(flat: torch.Tensor, cap: int):
     """Ascending indices of the first ``cap`` True lanes of ``flat`` (lanes
@@ -68,11 +70,13 @@ def radius_classes(candidates, r_max: int) -> list[int]:
 def class_of(radius: torch.Tensor, radii) -> torch.Tensor:
     """Each lane's class: the index of the smallest of ``radii`` that covers
     its radius (``searchsorted``), the last class above them all."""
-    t = torch.tensor(radii, dtype=radius.dtype, device=radius.device)
+    with profiling.span("sift.sync.table"):
+        t = torch.tensor(radii, dtype=radius.dtype, device=radius.device)
     return torch.searchsorted(t, radius).clamp_max(len(radii) - 1)
 
 
-def by_radius_class(radius: torch.Tensor, radii, chunk: int, args, fn) -> torch.Tensor:
+def by_radius_class(radius: torch.Tensor, radii, chunk: int, args, fn,
+                    stage: str | None = None) -> torch.Tensor:
     """``fn(lane args, r)`` over L >= 1 lanes, each lane in the window of its
     own class (``class_of``), results in lane order.
 
@@ -82,16 +86,24 @@ def by_radius_class(radius: torch.Tensor, radii, chunk: int, args, fn) -> torch.
     window.  The lanes are sorted stably by class, the per-class counts
     read to the host at once, and each class runs in ``padded_chunks`` of a
     fixed lane count (``chunk`` at the largest window, more lanes to a
-    smaller one at about the same number of samples)."""
+    smaller one at about the same number of samples).
+
+    ``stage``: while a profiler records, count the window samples of the
+    valid lanes (``<stage>.samples_valid``) and of the lanes computed, the
+    padding included (``<stage>.samples_computed``)."""
     cls = class_of(radius, radii)
     order = torch.argsort(cls, stable=True)
-    counts = torch.bincount(cls, minlength=len(radii)).tolist()
+    with profiling.span("sift.sync.classes"):
+        counts = torch.bincount(cls, minlength=len(radii)).tolist()
     side = 2 * radii[-1] + 1
     parts, start = [], 0
     for r, c in zip(radii, counts):
         if c:
             lanes = chunk * max(1, side * side // (2 * r + 1) ** 2)
             pad, chunks = padded_chunks(c, lanes, radius.device)
+            if stage is not None:
+                profiling.count(f"{stage}.samples_valid", c * (2 * r + 1) ** 2)
+                profiling.count(f"{stage}.samples_computed", len(pad) * (2 * r + 1) ** 2)
             sel = order[start:start + c][pad]
             sub = [a[sel] for a in args]
             parts.append(torch.cat([fn([a[s] for a in sub], r) for s in chunks])[:c])
@@ -104,7 +116,8 @@ def by_radius_class(radius: torch.Tensor, radii, chunk: int, args, fn) -> torch.
 
 def lut(values, sel: torch.Tensor, dtype) -> torch.Tensor:
     """Per-lane lookup of a tiny static table: out[i] = values[sel[i]]."""
-    table = torch.tensor(values, dtype=dtype, device=sel.device)
+    with profiling.span("sift.sync.table"):
+        table = torch.tensor(values, dtype=dtype, device=sel.device)
     return table[sel.long()]
 
 
@@ -119,7 +132,8 @@ class _Space:
         tables = self.__dict__.setdefault("_tables", {})
         t = tables.get(name)
         if t is None:
-            t = tables[name] = torch.tensor(values, dtype=torch.int64, device=oct_id.device)
+            with profiling.span("sift.sync.table"):
+                t = tables[name] = torch.tensor(values, dtype=torch.int64, device=oct_id.device)
         return t[oct_id.long()]
 
     def table(self, axis: int, oct_id: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.ops.gather import compact_mask
+from sift_tpu_torch.utils import profiling
 
 FIELDS = ("x", "y", "octave", "layer", "size", "pori", "desc", "valid")
 
@@ -140,7 +141,8 @@ def sort_and_dedup(kp: Keypoints) -> Keypoints:
     DESC; equality for dedup ignores octave/layer (src/sift.hh:25-27).
     Invalid lanes sort to the end.
     """
-    big = torch.tensor(float("inf"), dtype=kp.x.dtype, device=kp.x.device)
+    with profiling.span("sift.sync.table"):
+        big = torch.tensor(float("inf"), dtype=kp.x.dtype, device=kp.x.device)
     v = kp.valid
     keys = [
         torch.where(v, kp.x, big),

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from sift_tpu_torch.utils import profiling
+
 
 def xmul(a, b):
     """A product rounded on its own, as the C++ reference rounds it.  Every
@@ -23,7 +25,8 @@ def xmul(a, b):
 def xdiv(a: torch.Tensor, b) -> torch.Tensor:
     """True division, also when ``b`` is a constant."""
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        with profiling.span("sift.sync.table"):
+            b = torch.tensor(b, dtype=a.dtype, device=a.device)
     return a / b
 
 

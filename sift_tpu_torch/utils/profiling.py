@@ -1,11 +1,23 @@
-"""Observability: per-stage timing, counters and device profiling.
+"""Observability: spans, counters, per-stage timing and device profiling.
 
 Counterpart of ``sift_tpu/utils/profiling.py``.  The reference interleaves
 std::cout progress logging with compute (src/sift.cpp:188-198,719-773).
-Here observability is structured and opt-in: a ``StageTimer`` collects
-wall times per named stage, each stage is a ``torch.profiler``
-``record_function`` range in a trace, and ``trace_to(dir)`` captures a
-trace that Perfetto (or chrome://tracing) opens.
+Here observability is structured and opt-in, and ``torch.profiler`` is
+its one store and exporter:
+
+* ``span(name)`` marks a range of host time as a ``record_function`` event
+  while a profiler records, so the program's stages and host waits sit in
+  the same trace, on the same clock, as the card's kernels and copies;
+* ``count(name, n)`` adds to a total while a profiler records, and
+  ``counters()`` reads the totals;
+* ``StageTimer`` collects wall times per named stage, each stage a span;
+* ``trace_to(dir)`` captures a trace that Perfetto (or chrome://tracing)
+  opens.
+
+With no profiler recording, ``span`` and ``count`` read one flag and do
+nothing else.  The program's spans are ``sift.<stage>`` around each stage
+function and ``sift.sync.<kind>`` around each point where the host waits
+for the card (``upload``, ``table``, ``lanes``, ``classes``).
 """
 
 from __future__ import annotations
@@ -19,7 +31,30 @@ from collections import defaultdict
 
 import torch
 
-from sift_tpu_torch.utils.debug import tree_leaves
+# The profiler's own flag, read as a module attribute on every call: it is
+# True only while a profiler records (not in a schedule's warm-up step).
+_autograd_profiler = torch.autograd.profiler
+_NULL = contextlib.nullcontext()
+_counts: dict[str, int] = {}
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a torch profiler
+    records; else a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the total ``name`` while a torch profiler records."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A copy of the totals that ``count`` accumulated while recording."""
+    return dict(_counts)
 
 
 class StageTimer:
@@ -38,9 +73,13 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str, result=None):
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
         if self.sync and result is not None:
+            # here, not at the top: utils.debug imports ops.gather, which
+            # imports this module
+            from sift_tpu_torch.utils.debug import tree_leaves
+
             for dev in {a.device for _, a in tree_leaves(result)
                         if isinstance(a, torch.Tensor) and a.is_cuda}:
                 torch.cuda.synchronize(dev)
@@ -96,16 +135,3 @@ def trace_to(log_dir: str):
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
-
-class Metrics:
-    """Structured pipeline metrics (counts per stage, fps) as one JSON doc --
-    the structured replacement for the reference's stdout counters."""
-
-    def __init__(self):
-        self.values: dict = {}
-
-    def set(self, key: str, value):
-        self.values[key] = value
-
-    def to_json(self) -> str:
-        return json.dumps(self.values, sort_keys=True)
