@@ -1015,7 +1015,7 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
             for p in range(pairs):
                 got = {(i, int(idx[p, i])) for i in np.nonzero(acc[p].numpy())[0]}
                 need(got == want, f"parallel {what} rank {r} pair {p}: {len(got ^ want)} differ")
-    launched(0, blur_pass=1, octave_front_twin=octaves)
+    launched(0, blur_pass=1, octave_front_twin=octaves, describe=1)
     launched(1, top2=1)
     launched(2, top2=1)
 
@@ -1044,7 +1044,7 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
     off2, off0 = float((dd > 2).mean()), float((dd != 0).mean())
     need(off2 < 0.001 and off0 < 0.05, f"parallel spatial: descriptor bytes off {off2}, {off0}")
     max_dev = np.abs(a[assign] - b).max(0).tolist()
-    launched(5, octave_blur=octaves, blur_pass=1, twin_rows_2d=3 * octaves)
+    launched(5, octave_blur=octaves, blur_pass=1, twin_rows_2d=3 * octaves, describe=octaves)
 
     # -- leg 3: point-sharded bundle adjustment ------------------------------
     def problem_f32():
@@ -1357,7 +1357,7 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         n_pairs = SCENE_FRAMES - 1
         n_batches = -(-SCENE_FRAMES // 8)
         expect("stream_scene", dict(blur_pass=n_batches, octave_front_twin=n_batches * octaves,
-                                    top2=-(-n_pairs // 4)))
+                                    top2=-(-n_pairs // 4), describe=n_batches))
         refs = []
         for lo in range(0, SCENE_FRAMES, 8):
             chunk = scene[lo:lo + 8]
@@ -1380,7 +1380,7 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         zero_counts()
         BN.stream_sweeps(paths, scfg, BATCH, 1, 8, dev)
         launches["stream"] = read_counts()
-        expect("stream", dict(blur_pass=1, octave_front_twin=octaves, top2=1))
+        expect("stream", dict(blur_pass=1, octave_front_twin=octaves, top2=1, describe=1))
 
         # (7) pairwise_sq_dists on the card against the exact integers and kernel B
         rng = np.random.default_rng(7)
@@ -1446,6 +1446,79 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
               h2d_ceiling_fps=line["stream_h2d_ceiling_fps"],
               phase_s=time.perf_counter() - t_phase))
     return launches
+
+
+# Kernel I's cells: the benchmark's resident_b16 (16 frames of CAVE-01 at
+# its capacities) and cli_pair (the demo pair at SiftConfig()).
+DESCRIBE_CELLS = dict(
+    resident_b16=([f"scene_oracle/cave01_{i:02d}.npz" for i in range(16)],
+                  dict(extrema_cap=12288, kp_cap=2048, ori_cap=3072)),
+    cli_pair=(["oracle_demo1.npz", "oracle_demo2.npz"], {}),
+)
+# Kernel I's float32 operations a window sample (csrc/describe.cu), a
+# transcendental call counted as one: rotation and bins 10, gradient,
+# magnitude, angle and weight 14, the three bins' weights 11, eight
+# histogram terms of three operations 24.
+DESCRIBE_OPS = 59
+
+
+def describe_phase(dev, smi):
+    """Kernel I at the benchmark cells' shapes, on the main path's gauss
+    space: bit for bit against ``describe_ordered_plain``, again against
+    itself, against the plain chain up to the order of sums (its measured
+    max |diff| is the table's ``max_abs_err``); timed (CUDA
+    events around the wrapper, and the device time from a graph replay)
+    beside the plain chain and the bound (each valid lane's patch read
+    once, 128 bytes a lane written, the keypoint fields read once; or its
+    window's operations).  Returns the kernel table's numbers by cell."""
+    import numpy as np
+    import torch
+
+    from sift_tpu_torch import SiftConfig
+    from sift_tpu_torch.models import descriptor as De
+    from sift_tpu_torch.models import sift as S
+    from sift_tpu_torch.ops import describe as D
+
+    out = {}
+    for name, (files, caps) in DESCRIBE_CELLS.items():
+        cfg = SiftConfig(**caps)
+        imgs = S.as_batch(np.stack([np.load(DATA / f)["input"] for f in files]), cfg, dev)
+        gsp, dsp, masks, counts = S.front_twin(imgs, cfg)
+        kp, _ = S.detect_refine(dsp, masks, counts, cfg)
+        del dsp, masks, counts
+        allkp = S.dedup(S.orient(gsp, kp, cfg)[0], cfg)
+        before = D.describe_kernel.launches
+        got = De.compute_descriptors_all(gsp, allkp, cfg)
+        need(D.describe_kernel.launches == before + 1, f"kernel I {name}: not one launch")
+        order_err = same(got, D.describe_ordered_plain(gsp, allkp, cfg,
+                                                        De.desc_radius_classes(cfg)),
+                         f"kernel I {name} vs describe_ordered_plain")
+        same(got, De.compute_descriptors_all(gsp, allkp, cfg), f"kernel I {name}, two launches")
+        plain = De.compute_descriptors_plain(gsp, allkp, cfg)
+        v = allkp.valid
+        diff = (got.int() - plain.int())[v].abs()
+        need(int(diff.max()) <= 1 and int((diff != 0).sum()) <= diff.numel() // 1000,
+             f"kernel I {name} vs the plain chain: {int((diff != 0).sum())} bytes off")
+        need(int(got[~v].int().abs().sum()) == 0, f"kernel I {name}: invalid lanes not zero")
+        radius = De._lane_args(gsp, allkp, cfg, None)[1][De._RADIUS]
+        r = radius.clamp(0, De.desc_radius_bound(cfg)).double()
+        lanes = v.numel()
+        patch_bytes = float(((2 * r + 3) ** 2).sum()) * 4
+        t_bytes = (patch_bytes + lanes * (128 + 6 * 4 + 1)) / HBM_BPS * 1e3
+        t_ops = float(((2 * r + 1) ** 2).sum()) * DESCRIBE_OPS / F32_OPS * 1e3
+        b_ms, b_by = bound(t_bytes, t_ops)
+        call = lambda: De.compute_descriptors_all(gsp, allkp, cfg)  # noqa: E731
+        out[name] = dict(
+            frames=len(files), lanes=lanes, valid=int(v.sum()),
+            ms=cuda_ms(call, KERNEL_REPS), device_ms=graph_ms(call, KERNEL_REPS),
+            plain_ms=host_ms(lambda: De.compute_descriptors_plain(gsp, allkp, cfg), 3),
+            bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
+            plain_bytes_off=int((diff != 0).sum()), bytes=int(diff.numel()),
+            max_abs_err=int(diff.max()), order_model_max_abs_err=order_err)
+        del gsp, kp, allkp, got, plain
+    emit(dict(phase="describe_kernel", nvidia_smi=smi, bit_equal_to_order_model=True,
+              cells=out))
+    return out
 
 
 def wide_frames(rows=None):
@@ -2001,7 +2074,7 @@ def main() -> int:
     )
     from sift_tpu_torch import cli
     from sift_tpu_torch.models.descriptor import class_counts as desc_class_counts
-    from sift_tpu_torch.models.descriptor import compute_descriptors_all, desc_radius_classes
+    from sift_tpu_torch.models.descriptor import compute_descriptors_plain, desc_radius_classes
     from sift_tpu_torch.models.orient import class_counts as ori_class_counts
     from sift_tpu_torch.models.orient import ori_radius_classes, orient_all
     from sift_tpu_torch.models import blend as BL
@@ -2028,7 +2101,8 @@ def main() -> int:
 
     # -- phase 1: device and kernel build ---------------------------------
     t0 = time.perf_counter()
-    logs = kernels.build(["octave_front", "top2", "blur_pass", "twin_rows", "cube_pack"])
+    logs = kernels.build(["octave_front", "top2", "blur_pass", "twin_rows", "cube_pack",
+                          "describe"])
     build_s = time.perf_counter() - t0
     # ptxas's register / spill report of each kernel (empty when cached).
     ptxas = {k: [ln.split(":", 1)[-1].strip() for ln in v.splitlines()
@@ -2414,7 +2488,8 @@ def main() -> int:
                       cfg.ratio_threshold, device=dev)
     launches = {"main": read_counts()}
     expect_launches("main", dict(octave_front_twin=octaves, octave_front=0, cube_pack=0,
-                                 blur_pass=1, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0))
+                                 blur_pass=1, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0,
+                                 describe=1))
     nkp = check_batch(kp, counts, "main path")
 
     # The plain-stack front route, counted.
@@ -2500,7 +2575,7 @@ def main() -> int:
     # rows twice (orientation, descriptors), as the JAX package's stages do.
     expect_launches("staged", dict(octave_blur=octaves * 2, blur_pass=2,
                                    twin_rows_2d=3 * octaves * 2, octave_front=0,
-                                   octave_front_twin=0))
+                                   octave_front_twin=0, describe=octaves * 2))
     for i, st in enumerate(staged):
         fin = st["final"]
         need(int(fin.valid.sum()) == WANT_KP[i], f"staged frame {i}: {int(fin.valid.sum())} kp")
@@ -2525,7 +2600,8 @@ def main() -> int:
     n_blurs = 1 + len(hks) * octaves
     expect_launches("xla_route", dict(octave_front=0, top2=0, octave_blur=0,
                                       blur_pass=n_blurs, twin_rows=2,
-                                      octave_front_twin=0, cube_pack=0, twin_rows_2d=0))
+                                      octave_front_twin=0, cube_pack=0, twin_rows_2d=0,
+                                      describe=1))
     check_batch(kx, cx, "XLA route")
     same_buffers(kx, kp, "XLA route vs the main path")
     emit(dict(phase="xla_route", keypoints=kx.valid.sum(1).tolist()[:2],
@@ -3123,8 +3199,8 @@ def main() -> int:
              "vs the worst-case window")
     need(int(peaks_c) == int(peaks_w), "ori_slots_max, classes vs the worst-case window")
     allkp = S.dedup(compact(cand_c, cfg.ori_cap), cfg)
-    desc_c = compute_descriptors_all(gsp, allkp, cfg)
-    desc_w = compute_descriptors_all(gsp, allkp, cfg, classes=False)
+    desc_c = compute_descriptors_plain(gsp, allkp, cfg)
+    desc_w = compute_descriptors_plain(gsp, allkp, cfg, classes=False)
     ddiff = (desc_c.int() - desc_w.int())[allkp.valid].abs()
 
     def stage_sweep(c):
@@ -3133,7 +3209,7 @@ def main() -> int:
         k, _ = S.detect_refine(d, m, n, cfg)
         del d, m, n
         a = S.dedup(compact(orient_all(g, k, cfg, classes=c)[0], cfg.ori_cap), cfg)
-        desc = compute_descriptors_all(g, a, cfg, classes=c)
+        desc = compute_descriptors_plain(g, a, cfg, classes=c)
         match_descriptors(desc[0::2], a.valid[0::2], desc[1::2], a.valid[1::2],
                           cfg.ratio_threshold, device=dev)
 
@@ -3141,7 +3217,7 @@ def main() -> int:
         """(orient stage, describe stage, sweep) ms."""
         return (host_ms(lambda: compact(orient_all(gsp, kpr, cfg, classes=c)[0], cfg.ori_cap),
                         TIMED_SWEEPS),
-                host_ms(lambda: compute_descriptors_all(gsp, allkp, cfg, classes=c),
+                host_ms(lambda: compute_descriptors_plain(gsp, allkp, cfg, classes=c),
                         TIMED_SWEEPS),
                 host_ms(lambda: stage_sweep(c), TIMED_SWEEPS))
 
@@ -3257,6 +3333,9 @@ def main() -> int:
               twin_rows_2d_single_calls_ms=h_single_ms, twin_rows_2d_plain_ms=h_plain_ms,
               twin_rows_2d_library_ms=h_lib_ms))
 
+    # -- phase 9b': kernel I at the benchmark cells' shapes --------------------
+    i_cells = describe_phase(dev, smi)
+
     # -- phase 9c: the streaming path: the loader, uint8 frames to the card,
     # the bench and the scene script, counted ------------------------------------
     launches.update(stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves,
@@ -3336,6 +3415,17 @@ def main() -> int:
              ms=h_ms, plain_ms=h_plain_ms, bound_ms=h_bound, bound_by=h_by,
              library_ms=h_lib_ms, launches_by_path=by_path("twin_rows_2d"), device_ms=h_dev_ms,
              sixteen_single_calls_ms=h_single_ms),
+        # Kernel I replaces no TPU kernel (the JAX package describes with
+        # XLA): ms and plain_ms at resident_b16's shapes, cli_pair's beside;
+        # max_abs_err against the plain chain over both cells' bytes.
+        dict(name="describe", route="cuda", source="sift_tpu_torch/csrc/describe.cu",
+             replaces=None, launches=launches["main"]["describe"],
+             max_abs_err=max(c["max_abs_err"] for c in i_cells.values()),
+             ms=i_cells["resident_b16"]["ms"], plain_ms=i_cells["resident_b16"]["plain_ms"],
+             bound_ms=i_cells["resident_b16"]["bound_ms"],
+             bound_by=i_cells["resident_b16"]["bound_by"], library_ms=None,
+             launches_by_path=by_path("describe"),
+             device_ms=i_cells["resident_b16"]["device_ms"], cli_pair=i_cells["cli_pair"]),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

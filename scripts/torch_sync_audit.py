@@ -14,6 +14,9 @@ the spans open when it was raised.  Prints one JSON line per cell:
   open);
 * ``spans``: per ``sift.sync.*`` span (name, and file:line of its
   ``with``), how often it was entered and the warnings raised inside it;
+* ``by_stage``: the main path's warnings per innermost stage span
+  (``sift.describe``, ``sift.orient``, ...; a stage without one is left
+  out);
 * ``outside_main_path``: the warnings raised outside every ``sift.*``
   span (the benchmark's own reads of the answers), each with the line of
   the checkout that led to it (else the innermost functions);
@@ -63,6 +66,7 @@ class Audit:
         self.inside = collections.Counter()
         self.sites: dict = {}
         self.outside: collections.Counter = collections.Counter()
+        self.stages: collections.Counter = collections.Counter()
         audit = self
 
         class Span:
@@ -91,6 +95,8 @@ class Audit:
             frm = site_of(mine[-1]) if mine else " < ".join(f.name for f in stack[::-1][:4])
             self.outside[f"{where} from {frm}"] += 1
             return
+        stages = [n for n in names if n.startswith("sift.") and not n.startswith("sift.sync.")]
+        self.stages[stages[-1]] += 1
         syncs = [e for e in self.stack if e[0].startswith("sift.sync.")]
         if syncs:
             syncs[-1][2] += 1
@@ -130,7 +136,7 @@ def audit_cell(name: str, seed: int) -> dict:
              for (n, w), c in sorted(a.entered.items()) if n.startswith("sift.sync.")]
     return dict(
         workload=name, seed=seed, frames=out["frames"], card=torch.cuda.get_device_name(dev),
-        sites=dict(sorted(a.sites.items())), spans=spans,
+        sites=dict(sorted(a.sites.items())), spans=spans, by_stage=dict(sorted(a.stages.items())),
         outside_main_path=dict(a.outside),
         counters={k: v - before.get(k, 0) for k, v in after.items()},
         ok=all(not r["span"].startswith("outside") for r in a.sites.values()),

@@ -15,6 +15,9 @@ every edge of its graph:
   sorts each differing match of a non-exact edge into ``kp-miss`` or
   ``ratio-flip`` with the exact-integer Lowe margin.  Every true stage
   count is checked against its capacity: a clipped frame stops the run.
+  The summary adds the descriptor bytes that differ from the oracle's on
+  the keypoints that pair with the oracle's by the benchmark's rule
+  (``benchmark/judge.pair_keypoints``).
   The summary adds each hand-written kernel's launches.
 * ``--f64``, the parity profile on the CPU (float64 ``detect_stages``):
   per frame the keypoint set (x, y and size exact, pori at 1e-9) and the
@@ -46,6 +49,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from benchmark.judge import pair_keypoints  # noqa: E402
 from sift_tpu_torch import SiftConfig, match_descriptors  # noqa: E402
 from sift_tpu_torch.bench import check_counts, device_line  # noqa: E402
 from sift_tpu_torch.models.sift import detect_and_describe_batch, detect_stages  # noqa: E402
@@ -263,12 +267,20 @@ def production_sweep(args, caps, dev) -> dict:
             kps[f] = kp.map(lambda a, n=n: a[n])
 
     host = {f: kp.map(lambda a: a.cpu()) for f, kp in kps.items()}
-    frames_ok = 0
+    frames_ok = paired = bytes_off = 0
     for f in order:
         kp = host[f]
         v = kp.valid.numpy()
         mine = np.stack([kp.x.numpy()[v], kp.y.numpy()[v]], 1).astype(np.float64)
         ref = np.stack([oracle[f]["final.x"], oracle[f]["final.y"]], 1)
+        # descriptor bytes of the keypoints that pair with the oracle's
+        # (the benchmark's rule: 0.01 px, 0.1% of size, 0.01 rad)
+        fields = ("x", "y", "size", "pori", "octave", "layer", "desc")
+        pairing = pair_keypoints({n: getattr(kp, n).numpy()[v] for n in fields},
+                                 {n: oracle[f][f"final.{n}"] for n in fields})
+        hit = pairing >= 0
+        paired += int(hit.sum())
+        bytes_off += int((kp.desc.numpy()[v][hit] != oracle[f]["final.desc"][pairing[hit]]).sum())
         # coverage: every oracle keypoint has a mine within 5e-2 px
         d = np.abs(mine[:, None, :] - ref[None, :, :]).max(-1)
         cov = float((d.min(0) <= TOL_PX).mean()) if len(mine) else 0.0
@@ -296,7 +308,9 @@ def production_sweep(args, caps, dev) -> dict:
         emit(rec)
     return dict(summary=True, profile=f"f32-{dev.type}-production (sift_tpu_torch, "
                 f"{device_line(dev)})", caps=list(caps), frames=len(order),
-                frames_ok=frames_ok, edges=edges_total, edges_ok=edges_ok, graph=graph)
+                frames_ok=frames_ok, edges=edges_total, edges_ok=edges_ok, graph=graph,
+                desc_paired=paired, desc_bytes_off=bytes_off,
+                desc_bytes_off_pct=100.0 * bytes_off / max(1, 128 * paired))
 
 
 def launches() -> dict:

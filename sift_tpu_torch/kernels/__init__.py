@@ -82,11 +82,14 @@ def build(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.  A
+    build starts every source whose library is missing, in parallel, so
+    that a process pays for its builds once, at its first kernel."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
+            build(sorted({name} | {p.stem for p in CSRC.glob("*.cu")
+                                   if not _target(p.stem)[1].exists()}))
             lib = ctypes.CDLL(str(_target(name)[1]))
             _LIBS[name] = lib
         return lib

@@ -10,6 +10,9 @@ lanes' descriptors are zero, as in the JAX package).  Outside the
 float64 parity profile each lane reads the smallest window of the radius
 classes (20, 24, 28, 32, 36, R) that covers its own radius
 (``gather.by_radius_class``); float64 reads the worst-case window alone.
+That is the CPU's and float64's path (``compute_descriptors_plain``); in
+float32 on the card the whole stage is one launch of kernel I
+(``ops/describe.py``), which sums in a fixed order of its own.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from sift_tpu_torch.config import (
     SiftConfig,
 )
 from sift_tpu_torch.models.orient import max_size_octave
+from sift_tpu_torch.ops.describe import describe_kernel
 from sift_tpu_torch.ops.gather import (
     build_multi_rows,
     by_radius_class,
@@ -59,6 +63,20 @@ def desc_radius_classes(cfg: SiftConfig, classes: bool = True) -> list[int]:
 def _descriptors(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, hw, ca, sa,
                  pori, wl, hl, r: int, fast: bool):
     """(L, 128) uint8 descriptors of L valid lanes."""
+    nc = hw.shape[0]
+    patches = gather_patches(sp, img, oct_sel, layer_c, yc - r - 1, xc - r - 1, 2 * r + 3)
+    fr, fc, fo = window_factors(patches, x, y, radius, hw, ca, sa, pori, wl, hl, r, fast)
+    rc = fr[:, :, :, None] * fc[:, :, None, :]  # (nc, S2, 4, 4)
+    hist = torch.bmm(rc.reshape(nc, -1, 16).transpose(1, 2), fo)  # (nc, 16, 8)
+    return hist_to_desc(hist.reshape(nc, 128))
+
+
+def window_factors(patches, x, y, radius, hw, ca, sa, pori, wl, hl, r: int, fast: bool):
+    """The window samples' 2-sparse one-hot factors of L lanes, from their
+    (L, 2r + 3, 2r + 3) patches: fr (L, S2, 4) = m * the row weights, fc
+    (L, S2, 4) the column weights, fo (L, S2, 8) the orientation weights,
+    S2 = (2r + 1)^2 samples in row-major order, hist[r, c, o] = sum over
+    samples of (fr * fc) * fo."""
     dtype = hw.dtype
     dev = hw.device
     nc = hw.shape[0]
@@ -66,7 +84,6 @@ def _descriptors(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, hw, ca, sa,
     rg = offs[:, None].to(dtype)  # (s, 1) row = y offset
     cg = offs[None, :].to(dtype)  # (1, s) col = x offset
     e = (slice(None), None, None)
-    patches = gather_patches(sp, img, oct_sel, layer_c, yc - r - 1, xc - r - 1, 2 * r + 3)
     dx = patches[:, 1:-1, 2:] - patches[:, 1:-1, :-2]
     dy = patches[:, :-2, 1:-1] - patches[:, 2:, 1:-1]
 
@@ -120,9 +137,7 @@ def _descriptors(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, hw, ca, sa,
     fo = (1.0 - d_o)[..., None] * ((base_o % DESC_HIST_BINS) == oo) + d_o[..., None] * (
         ((base_o + 1) % DESC_HIST_BINS) == oo
     )
-    rc = fr[:, :, :, None] * fc[:, :, None, :]  # (nc, S2, 4, 4)
-    hist = torch.bmm(rc.reshape(nc, -1, 16).transpose(1, 2), fo)  # (nc, 16, 8)
-    return hist_to_desc(hist.reshape(nc, 128))
+    return fr, fc, fo
 
 
 def hist_to_desc(hist: torch.Tensor) -> torch.Tensor:
@@ -190,12 +205,26 @@ def class_counts(sp, kp: Keypoints, cfg: SiftConfig, classes: bool = True) -> li
 
 
 def compute_descriptors_all(sp, kp: Keypoints, cfg: SiftConfig,
-                            octave_of_volume: tuple[int, ...] | None = None,
-                            classes: bool = True) -> torch.Tensor:
+                            octave_of_volume: tuple[int, ...] | None = None) -> torch.Tensor:
     """Descriptors of a (B, n) post-dedup keypoint buffer in input-image
     coordinates: (B, n, 128) uint8, zero on invalid lanes.
-    ``octave_of_volume``: as in ``orient_all``; ``classes=False``: every
-    lane in the worst-case window (``desc_radius_classes``)."""
+    ``octave_of_volume``: as in ``orient_all``.  Float32 on the card takes
+    kernel I (``ops/describe.describe_kernel``: one launch, no host read,
+    each lane in its own window); the CPU and float64 take
+    ``compute_descriptors_plain``."""
+    if kp.x.device.type == "cuda" and kp.x.dtype == torch.float32:
+        return describe_kernel(sp, kp.map(lambda a: a.contiguous()), cfg,
+                               desc_radius_bound(cfg), octave_of_volume)
+    return compute_descriptors_plain(sp, kp, cfg, octave_of_volume)
+
+
+def compute_descriptors_plain(sp, kp: Keypoints, cfg: SiftConfig,
+                              octave_of_volume: tuple[int, ...] | None = None,
+                              classes: bool = True) -> torch.Tensor:
+    """Same contract as ``compute_descriptors_all``, in plain PyTorch on
+    any device: the valid lanes compacted, ``_descriptors`` per radius
+    class in lane chunks.  ``classes=False``: every lane in the worst-case
+    window (``desc_radius_classes``)."""
     bsz, n = kp.x.shape
     dev = kp.x.device
     fast = kp.x.dtype != torch.float64

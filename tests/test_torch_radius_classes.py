@@ -1,12 +1,13 @@
 """Radius classes of orientation and descriptors (float32 only).
 
 Outside the float64 parity profile each valid lane of stage 3
-(``orient_all``) and stage 5 (``compute_descriptors_all``) reads the
-smallest window of the JAX package's dispatch classes that covers its own
-radius: (11, 13, 17) for orientation and (20, 24, 28, 32, 36, 40) for
-descriptors at the default configuration.  A larger window adds only
-masked exact zeros, so classes move a lane's sums by their order alone;
-float64 keeps the one worst-case window.
+(``orient_all``) and of stage 5's plain chain (``compute_descriptors_plain``,
+the CPU's descriptors) reads the smallest window of the JAX package's
+dispatch classes that covers its own radius: (11, 13, 17) for orientation
+and (20, 24, 28, 32, 36, 40) for descriptors at the default
+configuration.  A larger window adds only masked exact zeros, so classes
+move a lane's sums by their order alone; float64 keeps the one worst-case
+window.
 """
 
 from __future__ import annotations
@@ -139,7 +140,8 @@ def test_classes_keep_keypoints_candidates_and_descriptors(run32):
     assert int(a.valid.sum()) > 0
     assert float((a.pori - b.pori)[a.valid].abs().max()) <= 1e-5
     allkp = S.dedup(K.compact(a, cfg.ori_cap), cfg)
-    da, db = (De.compute_descriptors_all(gsp, allkp, cfg, classes=c).int() for c in (True, False))
+    da, db = (De.compute_descriptors_plain(gsp, allkp, cfg, classes=c).int()
+              for c in (True, False))
     diff = (da - db)[allkp.valid].abs()
     assert int(diff.max()) <= 1
     assert int((diff != 0).sum()) <= max(1, diff.numel() // 10_000)
@@ -158,8 +160,8 @@ def test_float64_ignores_classes():
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     allkp = S.dedup(K.compact(a, cfg.ori_cap), cfg)
     assert int(allkp.valid.sum()) > 0
-    assert torch.equal(De.compute_descriptors_all(gsp, allkp, cfg, classes=True),
-                       De.compute_descriptors_all(gsp, allkp, cfg, classes=False))
+    assert torch.equal(De.compute_descriptors_plain(gsp, allkp, cfg, classes=True),
+                       De.compute_descriptors_plain(gsp, allkp, cfg, classes=False))
 
 
 @pytest.fixture(scope="module")

@@ -138,6 +138,9 @@ def test_production_sweep_on_the_cpu_prints_the_jax_records(capsys):
     assert [set(r) for r in edges] == [JAX_KEYS["edge"]]
     assert edges[0] == dict(edge=[0, 1], matches=165, ref_matches=165, set_exact=True, overlap=165)
     assert JAX_KEYS["summary"] <= set(summary) and summary["graph"] == "chain"
+    # Every keypoint pairs with the oracle's; 44 of 223,232 bytes differ
+    # (0.0197%), float32 against the reference's float64.
+    assert summary["desc_paired"] == 677 + 1067 and summary["desc_bytes_off_pct"] < 0.1
     assert summary["profile"].startswith("f32-cpu-production (sift_tpu_torch")
     assert summary["launches"] == {k: 0 for k in summary["launches"]}  # no kernel on the CPU
 
