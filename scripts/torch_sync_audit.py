@@ -10,19 +10,19 @@ profiler: each span is pushed on a stack, so every warning is placed in
 the spans open when it was raised.  Prints one JSON line per cell:
 
 * ``sites``: per line that synchronised (file:line), its warnings and the
-  innermost span around it (``outside`` where no ``sift.sync.*`` span was
-  open);
-* ``spans``: per ``sift.sync.*`` span (name, and file:line of its
-  ``with``), how often it was entered and the warnings raised inside it;
+  innermost span around it (``outside`` where no wait span was open);
+* ``spans``: per wait span, ``sift.sync.*``, ``stitch.sync.*`` or
+  ``geometry.sync.*`` (name, and file:line of its ``with``), how often it
+  was entered and the warnings raised inside it;
 * ``by_stage``: the main path's warnings per innermost stage span
-  (``sift.describe``, ``sift.orient``, ...; a stage without one is left
-  out);
-* ``outside_main_path``: the warnings raised outside every ``sift.*``
-  span (the benchmark's own reads of the answers), each with the line of
-  the checkout that led to it (else the innermost functions);
+  (``sift.describe``, ``sift.orient``, ``stitch.blend``, ...; a stage
+  without one is left out);
+* ``outside_main_path``: the warnings raised outside every ``sift.*`` and
+  ``stitch.*`` span (the benchmark's own reads of the answers), each with
+  the line of the checkout that led to it (else the innermost functions);
 * ``counters``: the program's ``profiling.count`` totals of the request;
-* ``ok``: every warning inside a ``sift.*`` span lies inside a
-  ``sift.sync.*`` span.
+* ``ok``: every warning inside a ``sift.*`` or ``stitch.*`` span lies
+  inside a wait span.
 
     python scripts/torch_sync_audit.py [--workload cave_vga.resident_b16 ...] [--seed 1]
 
@@ -47,6 +47,11 @@ sys.path.insert(0, ROOT)
 
 from benchmark import harness  # noqa: E402
 from sift_tpu_torch.utils import profiling  # noqa: E402
+
+# The program's spans (the main path: detection, matching, stitching) and,
+# among them, those around a host wait.
+MAIN = ("sift.", "stitch.")
+WAITS = ("sift.sync.", "stitch.sync.", "geometry.sync.")
 
 
 def site(frame) -> str:
@@ -89,15 +94,16 @@ class Audit:
             return
         where = f"{os.path.relpath(filename, ROOT)}:{lineno}"
         names = [e[0] for e in self.stack]
-        if not any(n.startswith("sift.") for n in names):
+        if not any(n.startswith(MAIN) for n in names):
             stack = traceback.extract_stack()[:-1]
             mine = [f for f in stack if f.filename.startswith(ROOT) and f.filename != __file__]
             frm = site_of(mine[-1]) if mine else " < ".join(f.name for f in stack[::-1][:4])
             self.outside[f"{where} from {frm}"] += 1
             return
-        stages = [n for n in names if n.startswith("sift.") and not n.startswith("sift.sync.")]
-        self.stages[stages[-1]] += 1
-        syncs = [e for e in self.stack if e[0].startswith("sift.sync.")]
+        stages = [n for n in names if n.startswith(MAIN) and not n.startswith(WAITS)]
+        if stages:
+            self.stages[stages[-1]] += 1
+        syncs = [e for e in self.stack if e[0].startswith(WAITS)]
         if syncs:
             syncs[-1][2] += 1
         rec = self.sites.setdefault(where, dict(warnings=0, span=None))
@@ -133,7 +139,7 @@ def audit_cell(name: str, seed: int) -> dict:
     after = profiling.counters()
     client.close()
     spans = [dict(span=n, at=w, entered=c, warnings=a.inside[(n, w)])
-             for (n, w), c in sorted(a.entered.items()) if n.startswith("sift.sync.")]
+             for (n, w), c in sorted(a.entered.items()) if n.startswith(WAITS)]
     return dict(
         workload=name, seed=seed, frames=out["frames"], card=torch.cuda.get_device_name(dev),
         sites=dict(sorted(a.sites.items())), spans=spans, by_stage=dict(sorted(a.stages.items())),

@@ -15,6 +15,12 @@ The standard Brown & Lowe (IJCV 2007) compositing stack:
   wider regions (no visible seams).  Two passes over the image stack, each
   a Python loop that accumulates on the device (the JAX package's
   ``lax.scan``): the seam assignment, then the per-level sums.
+
+Spans (``utils/profiling``): ``stitch.gains`` around ``estimate_gains``
+(its host read ``stitch.sync.gains``), ``stitch.blend`` around
+``multiband_blend``, uploads ``stitch.sync.upload``; the multiband pass
+counts ``blend.px_warped`` / ``blend.px_footprint`` as
+``stitch.count_blend`` says.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from sift_tpu_torch.models.stitch import warp_accumulate
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import resolve_device
 
 # --------------------------------------------------------------------------
@@ -87,6 +94,13 @@ def estimate_gains(
                     + (1 - g_i)^2 / sigma_g^2 ]``.
     Returns (N,) gains (all ones when there are no usable overlaps).
     """
+    with profiling.span("stitch.gains"):
+        return _gains(images, homographies, out_h, out_w, scale, sigma_n, sigma_g,
+                      min_overlap, device)
+
+
+def _gains(images, homographies, out_h, out_w, scale, sigma_n, sigma_g, min_overlap,
+           device):
     n = len(images)
     lum, cov = _lowres_luminance(images, homographies, out_h, out_w, scale, device)
     # Every pair's overlap size and luminance sums at once, as two Gram
@@ -94,7 +108,8 @@ def estimate_gains(
     # S[i, j] = the sum of lum_i over that overlap.
     m = cov.reshape(n, -1).to(torch.float64)
     lm = lum.reshape(n, -1).to(torch.float64) * m
-    overlap, sums = torch.stack([m @ m.T, lm @ m.T]).cpu().numpy()
+    with profiling.span("stitch.sync.gains"):
+        overlap, sums = torch.stack([m @ m.T, lm @ m.T]).cpu().numpy()
 
     a = np.zeros((n, n))
     b = np.zeros(n)
@@ -129,10 +144,10 @@ def _lowres_luminance(images, homographies, out_h, out_w, scale, device="cuda"):
     accs, wgts = [], []
     for img, h in zip(images, homographies):
         h_inv = np.linalg.inv(s @ np.asarray(h, np.float64)).astype(np.float32)
-        acc, wgt = warp_accumulate(
-            torch.from_numpy(np.asarray(img, np.float32)).to(dev),
-            torch.from_numpy(h_inv).to(dev), lh, lw,
-        )
+        with profiling.span("stitch.sync.upload"):
+            img_d = torch.from_numpy(np.asarray(img, np.float32)).to(dev)
+            h_inv_d = torch.from_numpy(h_inv).to(dev)
+        acc, wgt = warp_accumulate(img_d, h_inv_d, lh, lw)
         accs.append(acc)
         wgts.append(wgt)
     wgts = torch.stack(wgts)
@@ -290,31 +305,37 @@ def multiband_blend(
     Falls back to feather strips when the canvas exceeds ``max_pixels``
     (full-pyramid residency) or when source shapes differ.
     """
-    from sift_tpu_torch.models.stitch import _canvas_layout, blend_warped
+    from sift_tpu_torch.models.stitch import _canvas_layout, blend_warped, count_blend
 
     dev = resolve_device(device)
-    out_h, out_w, t = _canvas_layout(images, homographies, max_canvas)
-    same_shape = len({img.shape for img in images}) == 1
-    if out_h * out_w > max_pixels or not same_shape:
-        # Feather fallback keeps the gain compensation already estimated.
-        return blend_warped(
-            images, homographies, max_canvas=max_canvas, gains=gains, device=dev
+    with profiling.span("stitch.blend"):
+        out_h, out_w, t = _canvas_layout(images, homographies, max_canvas)
+        same_shape = len({img.shape for img in images}) == 1
+        if out_h * out_w > max_pixels or not same_shape:
+            # Feather fallback keeps the gain compensation already estimated.
+            return blend_warped(
+                images, homographies, max_canvas=max_canvas, gains=gains, device=dev
+            )
+
+        # Pad up so every pyramid level halves cleanly; crop at the end.
+        mult = 1 << (bands - 1)
+        ph = -(-out_h // mult) * mult
+        pw = -(-out_w // mult) * mult
+        # each image is warped over the padded canvas twice (seams, levels)
+        count_blend(images, homographies, t, out_h, out_w, ph * pw, passes=2,
+                    max_canvas=max_canvas)
+
+        h_invs = np.stack(
+            [np.linalg.inv(t @ np.asarray(h)) for h in homographies]
+        ).astype(np.float32)
+        g = np.ones(len(images), np.float32) if gains is None else np.asarray(
+            gains, np.float32
         )
-
-    # Pad up so every pyramid level halves cleanly; crop at the end.
-    mult = 1 << (bands - 1)
-    ph = -(-out_h // mult) * mult
-    pw = -(-out_w // mult) * mult
-
-    h_invs = np.stack(
-        [np.linalg.inv(t @ np.asarray(h)) for h in homographies]
-    ).astype(np.float32)
-    g = np.ones(len(images), np.float32) if gains is None else np.asarray(
-        gains, np.float32
-    )
-    stack = torch.from_numpy(np.stack(images).astype(np.float32)).to(dev)
-    out = _multiband_scan(
-        stack, torch.from_numpy(h_invs).to(dev), torch.from_numpy(g).to(dev),
-        ph, pw, bands,
-    )
-    return np.clip(out.cpu().numpy()[:out_h, :out_w], 0.0, 255.0)
+        with profiling.span("stitch.sync.upload"):
+            stack = torch.from_numpy(np.stack(images).astype(np.float32)).to(dev)
+            h_invs_d = torch.from_numpy(h_invs).to(dev)
+            g_d = torch.from_numpy(g).to(dev)
+        out = _multiband_scan(stack, h_invs_d, g_d, ph, pw, bands)
+        with profiling.span("stitch.sync.strip"):
+            out = out.cpu().numpy()
+        return np.clip(out[:out_h, :out_w], 0.0, 255.0)

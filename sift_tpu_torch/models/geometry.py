@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from sift_tpu_torch.utils import profiling
+
 
 def min_eigvec(a: torch.Tensor) -> torch.Tensor:
     """Least-squares null vector of (..., M, D) via the D x D normal
@@ -26,10 +28,13 @@ def min_eigvec(a: torch.Tensor) -> torch.Tensor:
     same minimizer as the SVD null vector.  Its sign is arbitrary.
 
     The normal matrix is a sum of elementwise products, not a BLAS product
-    (see the module docstring).
+    (see the module docstring).  On the card ``eigh`` reads its solver's
+    status to the host, a wait marked ``geometry.sync.eigh`` (the stitching
+    refit's, and the SfM solves' through this function).
     """
     ata = (a[..., :, :, None] * a[..., :, None, :]).sum(-3)
-    _, vecs = torch.linalg.eigh(ata)
+    with profiling.span("geometry.sync.eigh"):
+        _, vecs = torch.linalg.eigh(ata)
     return vecs[..., :, 0]
 
 

@@ -18,6 +18,16 @@ No stage here has a TPU kernel in the JAX package (they are XLA), so all
 of it is plain PyTorch.  Every product runs in full float32 (TF32 is off,
 see the package docstring): the projective maps are written out as
 elementwise products and sums, which round alike on the CPU and the card.
+
+Under a torch profiler (``utils/profiling``) the slice marks its stages,
+``stitch.scene`` > ``stitch.edges`` > ``stitch.ransac``, ``stitch.layout``,
+``stitch.gains`` (``models/blend``) and ``stitch.blend``, and its host
+waits, ``stitch.sync.{homographies,strip,upload,gains}`` (and, inside
+``stitch.ransac``, ``geometry.min_eigvec``'s ``geometry.sync.eigh``); it counts
+``stitch.edges``, ``stitch.hypothesis_lanes`` (K x N a RANSAC),
+``blend.px_warped`` (canvas pixels a blend samples, per image) and
+``blend.px_footprint`` (of those, the pixels inside the bounding box of
+the image's warped corners).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 
 from sift_tpu_torch.models import geometry
 from sift_tpu_torch.models.geometry import matmul3, min_eigvec
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import resolve_device, to_i32, xdiv
 
 # --------------------------------------------------------------------------
@@ -129,8 +140,10 @@ def ransac_homography(
     device.  All shapes are static: pts are fixed-capacity buffers with a
     validity mask.
     """
-    idx = sample_hypotheses(valid, num_hypotheses, seed)
-    return ransac_with_samples(pts1, pts2, valid, idx, inlier_threshold)
+    with profiling.span("stitch.ransac"):
+        profiling.count("stitch.hypothesis_lanes", num_hypotheses * pts1.shape[0])
+        idx = sample_hypotheses(valid, num_hypotheses, seed)
+        return ransac_with_samples(pts1, pts2, valid, idx, inlier_threshold)
 
 
 def ransac_with_samples(pts1, pts2, valid, idx, inlier_threshold: float = 3.0):
@@ -252,6 +265,28 @@ def _blend_strip(images, h_invs: torch.Tensor, strip_h: int, out_w: int) -> torc
     return acc / torch.clamp(wacc, min=1e-8)[:, :, None]
 
 
+def _warped_corners(images, homographies, max_canvas: int = 8192) -> np.ndarray:
+    """(N, 4, 2) images of each image's four corner pixels in the common
+    frame, capped to +-2 ``max_canvas``.  Host numpy."""
+    corners = []
+    for img, h in zip(images, homographies):
+        hh, ww = img.shape[0], img.shape[1]
+        c = np.array(
+            [[0, 0], [ww - 1, 0], [0, hh - 1], [ww - 1, hh - 1]], np.float64
+        )
+        ch = np.concatenate([c, np.ones((4, 1))], axis=1) @ np.asarray(h).T
+        wz = ch[:, 2:3]
+        wz = np.where(np.abs(wz) < 1e-9, 1e-9, wz)
+        corners.append(ch[:, :2] / wz)
+    corners = np.stack(corners)
+    # Degenerate homographies throw corners to infinity; the canvas clamp
+    # bounds them, so cap here to keep the arithmetic finite.
+    return np.clip(
+        np.nan_to_num(corners, nan=0.0, posinf=max_canvas, neginf=-max_canvas),
+        -2.0 * max_canvas, 2.0 * max_canvas,
+    )
+
+
 def _canvas_layout(
     images: list[np.ndarray],
     homographies: list[np.ndarray],
@@ -264,31 +299,34 @@ def _canvas_layout(
     are clamped to ``max_canvas`` per side (planar projective chains blow up
     as the panorama field of view approaches 180 degrees).  Host numpy.
     """
-    corners = []
-    for img, h in zip(images, homographies):
-        hh, ww = img.shape[0], img.shape[1]
-        c = np.array(
-            [[0, 0], [ww - 1, 0], [0, hh - 1], [ww - 1, hh - 1]], np.float64
-        )
-        ch = np.concatenate([c, np.ones((4, 1))], axis=1) @ np.asarray(h).T
-        wz = ch[:, 2:3]
-        wz = np.where(np.abs(wz) < 1e-9, 1e-9, wz)
-        corners.append(ch[:, :2] / wz)
-    corners = np.concatenate(corners, axis=0)
-    # Degenerate homographies throw corners to infinity; the canvas clamp
-    # below bounds them, so cap here to keep the arithmetic finite.
-    corners = np.clip(
-        np.nan_to_num(corners, nan=0.0, posinf=max_canvas, neginf=-max_canvas),
-        -2.0 * max_canvas, 2.0 * max_canvas,
-    )
-    x_min, y_min = np.floor(corners.min(axis=0))
-    x_max, y_max = np.ceil(corners.max(axis=0))
-    x_min = max(x_min, -float(max_canvas) / 2)
-    y_min = max(y_min, -float(max_canvas) / 2)
-    out_w = min(int(x_max - x_min + 1), max_canvas)
-    out_h = min(int(y_max - y_min + 1), max_canvas)
-    t = np.array([[1, 0, -x_min], [0, 1, -y_min], [0, 0, 1]], np.float64)
+    with profiling.span("stitch.layout"):
+        corners = _warped_corners(images, homographies, max_canvas).reshape(-1, 2)
+        x_min, y_min = np.floor(corners.min(axis=0))
+        x_max, y_max = np.ceil(corners.max(axis=0))
+        x_min = max(x_min, -float(max_canvas) / 2)
+        y_min = max(y_min, -float(max_canvas) / 2)
+        out_w = min(int(x_max - x_min + 1), max_canvas)
+        out_h = min(int(y_max - y_min + 1), max_canvas)
+        t = np.array([[1, 0, -x_min], [0, 1, -y_min], [0, 0, 1]], np.float64)
     return out_h, out_w, t
+
+
+def count_blend(images, homographies, t: np.ndarray, out_h: int, out_w: int,
+                sampled: int, passes: int = 1, max_canvas: int = 8192) -> None:
+    """While a profiler records, per image and pass over the images:
+    ``blend.px_warped`` += ``sampled`` (the canvas pixels one warp of the
+    image samples) and ``blend.px_footprint`` += the pixels of the (out_h,
+    out_w) canvas inside the bounding box of the image's warped corners
+    (``t`` the canvas shift)."""
+    if not profiling.recording():
+        return
+    c = _warped_corners(images, homographies, max_canvas) + t[:2, 2]
+    x0 = np.clip(np.floor(c[..., 0].min(1)), 0, out_w)
+    x1 = np.clip(np.floor(c[..., 0].max(1)) + 1, 0, out_w)
+    y0 = np.clip(np.floor(c[..., 1].min(1)), 0, out_h)
+    y1 = np.clip(np.floor(c[..., 1].max(1)) + 1, 0, out_h)
+    profiling.count("blend.px_warped", passes * sampled * len(images))
+    profiling.count("blend.px_footprint", passes * int(((x1 - x0) * (y1 - y0)).sum()))
 
 
 def blend_warped(
@@ -308,31 +346,38 @@ def blend_warped(
     fallback.
     """
     dev = resolve_device(device)
-    out_h, out_w, t = _canvas_layout(images, homographies, max_canvas)
+    with profiling.span("stitch.blend"):
+        out_h, out_w, t = _canvas_layout(images, homographies, max_canvas)
 
-    h_invs = np.stack(
-        [np.linalg.inv(t @ np.asarray(h)) for h in homographies]
-    ).astype(np.float32)
-    if gains is not None:
-        # Photometric gain compensation: a host-side scale of working copies.
-        images = [
-            np.asarray(im, np.float32) * np.float32(g)
-            for im, g in zip(images, gains)
-        ]
-    strip_h = min(strip_rows, out_h)
-    n_strips = -(-out_h // strip_h)
-    out = np.zeros((out_h, out_w, images[0].shape[2]), np.float32)
-    imgs = [torch.from_numpy(np.asarray(im, np.float32)).to(dev) for im in images]
-    for s in range(n_strips):
-        t_strip = np.array(
-            [[1, 0, 0], [0, 1, float(s * strip_h)], [0, 0, 1]], np.float32
-        )
-        h_inv_s = (h_invs.astype(np.float64) @ t_strip.astype(np.float64)).astype(
-            np.float32
-        )
-        strip = _blend_strip(imgs, torch.from_numpy(h_inv_s).to(dev), strip_h, out_w)
-        rows = slice(s * strip_h, min((s + 1) * strip_h, out_h))
-        out[rows] = strip.cpu().numpy()[: rows.stop - rows.start]
+        h_invs = np.stack(
+            [np.linalg.inv(t @ np.asarray(h)) for h in homographies]
+        ).astype(np.float32)
+        if gains is not None:
+            # Photometric gain compensation: a host-side scale of working copies.
+            images = [
+                np.asarray(im, np.float32) * np.float32(g)
+                for im, g in zip(images, gains)
+            ]
+        strip_h = min(strip_rows, out_h)
+        n_strips = -(-out_h // strip_h)
+        count_blend(images, homographies, t, out_h, out_w, n_strips * strip_h * out_w,
+                    max_canvas=max_canvas)
+        out = np.zeros((out_h, out_w, images[0].shape[2]), np.float32)
+        with profiling.span("stitch.sync.upload"):
+            imgs = [torch.from_numpy(np.asarray(im, np.float32)).to(dev) for im in images]
+        for s in range(n_strips):
+            t_strip = np.array(
+                [[1, 0, 0], [0, 1, float(s * strip_h)], [0, 0, 1]], np.float32
+            )
+            h_inv_s = (h_invs.astype(np.float64) @ t_strip.astype(np.float64)).astype(
+                np.float32
+            )
+            with profiling.span("stitch.sync.upload"):
+                h_inv_s = torch.from_numpy(h_inv_s).to(dev)
+            strip = _blend_strip(imgs, h_inv_s, strip_h, out_w)
+            rows = slice(s * strip_h, min((s + 1) * strip_h, out_h))
+            with profiling.span("stitch.sync.strip"):
+                out[rows] = strip.cpu().numpy()[: rows.stop - rows.start]
     return out
 
 
@@ -391,11 +436,12 @@ def stitch_scene(
 
     cfg = cfg or SiftConfig()
     dev = resolve_device(device)
-    if kps is None:
-        kps = [detect_and_describe(img, cfg, device=dev) for img in images]
+    with profiling.span("stitch.scene"):
+        if kps is None:
+            kps = [detect_and_describe(img, cfg, device=dev) for img in images]
 
-    h_edge = solve_edge_homographies(kps, graph, cfg, num_hypotheses)
-    return compose_scene(images, graph, h_edge, seam_aware=seam_aware, device=dev)
+        h_edge = solve_edge_homographies(kps, graph, cfg, num_hypotheses)
+        return compose_scene(images, graph, h_edge, seam_aware=seam_aware, device=dev)
 
 
 def solve_edge_homographies(
@@ -411,14 +457,17 @@ def solve_edge_homographies(
     edge_list = edge_subset if edge_subset is not None else [
         (i, parent) for i, parent in parents.items() if i != graph.center_index
     ]
-    hs = []
-    for i, parent in edge_list:
-        p1, p2, ok = match_points(kps[i], kps[parent], cfg.ratio_threshold)
-        h, _, _ = ransac_homography(p1, p2, ok, num_hypotheses)
-        hs.append(h)
-    # Single device -> host read for all edge homographies.
-    hs_host = (torch.stack(hs).cpu().numpy().astype(np.float64) if hs
-               else np.zeros((0, 3, 3)))
+    with profiling.span("stitch.edges"):
+        profiling.count("stitch.edges", len(edge_list))
+        hs = []
+        for i, parent in edge_list:
+            p1, p2, ok = match_points(kps[i], kps[parent], cfg.ratio_threshold)
+            h, _, _ = ransac_homography(p1, p2, ok, num_hypotheses)
+            hs.append(h)
+        # Single device -> host read for all edge homographies.
+        with profiling.span("stitch.sync.homographies"):
+            hs_host = (torch.stack(hs).cpu().numpy().astype(np.float64) if hs
+                       else np.zeros((0, 3, 3)))
     return {e: hs_host[n] for n, e in enumerate(edge_list)}
 
 

@@ -17,7 +17,10 @@ its one store and exporter:
 With no profiler recording, ``span`` and ``count`` read one flag and do
 nothing else.  The program's spans are ``sift.<stage>`` around each stage
 function and ``sift.sync.<kind>`` around each point where the host waits
-for the card (``upload``, ``table``, ``lanes``, ``classes``).
+for the card (``upload``, ``table``, ``lanes``, ``classes``); the stitching
+slice's are ``stitch.<stage>`` and ``stitch.sync.<kind>`` (``models/stitch``,
+``models/blend``), and the shared solver's ``geometry.sync.eigh``
+(``models/geometry``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,12 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _NULL
     return torch.profiler.record_function(name)
+
+
+def recording() -> bool:
+    """Whether a torch profiler records: what ``span`` and ``count`` read,
+    for a count whose operand costs host work to compute."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def count(name: str, n: int) -> None:
