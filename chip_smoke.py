@@ -10,7 +10,9 @@ matcher; 8 pairs of 2048 x 2048 and one of 1286 x 1430, with planted
 ties), C (octave blur), D (one separable blur, one launch; ptxas must
 report no stack frame and no spills), E (twin-row gather space), F
 (octave front into the front-twin gather layouts), G (cube-packed DoG
-rows) and H (row-major twin rows); E and H (one launch a gather space)
+rows), H (row-major twin rows), I (descriptors) and J (detect + refine;
+I and J at the benchmark cells' shapes, J bit for bit against its plain
+chain); E and H (one launch a gather space)
 also through their launcher into NaN-filled buffers, so that a row the
 launch does not write fails, at the sweep's, the staged path's and the
 demo pair's shapes, blk 64 and 128, and G the same way at the batch's,
@@ -762,7 +764,7 @@ def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
                 need(repaired, f"sfm {name}: the loop-closure repair did not run: "
                      f"{ {x: info.get(x) for x in ('loop_pairs_added', 'loop_closure_skipped')} }")
             want = dict(blur_pass=nf, octave_front_twin=nf * octaves_of(frames[0]),
-                        top2=calls["match_descriptors"])
+                        top2=calls["match_descriptors"], detect=nf)
             got = {kn: launches[name][kn] for kn in want}
             need(got == want, f"sfm {name}: launches {launches[name]}, want {want}")
             seqs[name] = dict(
@@ -1015,7 +1017,7 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
             for p in range(pairs):
                 got = {(i, int(idx[p, i])) for i in np.nonzero(acc[p].numpy())[0]}
                 need(got == want, f"parallel {what} rank {r} pair {p}: {len(got ^ want)} differ")
-    launched(0, blur_pass=1, octave_front_twin=octaves, describe=1)
+    launched(0, blur_pass=1, octave_front_twin=octaves, describe=1, detect=1)
     launched(1, top2=1)
     launched(2, top2=1)
 
@@ -1357,7 +1359,7 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         n_pairs = SCENE_FRAMES - 1
         n_batches = -(-SCENE_FRAMES // 8)
         expect("stream_scene", dict(blur_pass=n_batches, octave_front_twin=n_batches * octaves,
-                                    top2=-(-n_pairs // 4), describe=n_batches))
+                                    top2=-(-n_pairs // 4), describe=n_batches, detect=n_batches))
         refs = []
         for lo in range(0, SCENE_FRAMES, 8):
             chunk = scene[lo:lo + 8]
@@ -1380,7 +1382,8 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         zero_counts()
         BN.stream_sweeps(paths, scfg, BATCH, 1, 8, dev)
         launches["stream"] = read_counts()
-        expect("stream", dict(blur_pass=1, octave_front_twin=octaves, top2=1, describe=1))
+        expect("stream", dict(blur_pass=1, octave_front_twin=octaves, top2=1, describe=1,
+                              detect=1))
 
         # (7) pairwise_sq_dists on the card against the exact integers and kernel B
         rng = np.random.default_rng(7)
@@ -1521,6 +1524,67 @@ def describe_phase(dev, smi):
     return out
 
 
+# Kernel J's bound: per valid extremum lane five reads of a 27-value float32
+# cube (the cascade's most steps) and its fields, 4 int32 in, 4 floats out.
+DETECT_LANE_BYTES = 5 * 27 * 4 + 32
+
+
+def detect_phase(dev, smi):
+    """Kernel J at the benchmark cells' shapes, on the main path's DoG
+    space: bit for bit against the plain chain (``extrema_from_counts`` +
+    ``_refine``) in every field, the counts and the lane order, again
+    against itself; timed (CUDA events around the wrapper, and the device
+    time from a graph replay) beside the plain chain and the bound (the
+    popcounts and the masks' rows that hold extrema read once, each valid
+    lane's ``DETECT_LANE_BYTES``, the (B, kp_cap) output written once).
+    Returns the kernel table's numbers by cell."""
+    import numpy as np
+
+    from sift_tpu_torch import SiftConfig
+    from sift_tpu_torch.models import sift as S
+    from sift_tpu_torch.models.detect import extrema_from_counts
+    from sift_tpu_torch.ops import detect as DJ
+    from sift_tpu_torch.utils.keypoints import FIELDS
+
+    out = {}
+    for name, (files, caps) in DESCRIBE_CELLS.items():
+        cfg = SiftConfig(**caps)
+        imgs = S.as_batch(np.stack([np.load(DATA / f)["input"] for f in files]), cfg, dev)
+        _, dsp, masks, counts = S.front_twin(imgs, cfg)
+
+        def plain():
+            return S._refine(dsp, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
+
+        before = DJ.detect_kernel.launches
+        kp, c = S.detect_refine(dsp, masks, counts, cfg)
+        need(DJ.detect_kernel.launches == before + 1, f"kernel J {name}: not one launch")
+        want, wc = plain()
+        err = 0.0
+        for f in FIELDS:
+            err = max(err, same(getattr(kp, f), getattr(want, f), f"kernel J {name} {f}"))
+        for k in wc:
+            same(c[k], wc[k], f"kernel J {name} count {k}")
+        again, c2 = DJ.detect_kernel(dsp, masks, counts, cfg)
+        for f in FIELDS:
+            same(getattr(again, f), getattr(kp, f), f"kernel J {name} {f}, two launches")
+        bsz = len(files)
+        valid = int(c["extrema"].clamp_max(cfg.extrema_cap).sum())
+        rows = sum(cn.numel() for cn in counts)
+        t_bytes = (rows * 4 + sum(int((cn > 0).sum()) for cn in counts) * 128 * 4
+                   + valid * DETECT_LANE_BYTES
+                   + bsz * cfg.kp_cap * (6 * 4 + 1 + 128)) / HBM_BPS * 1e3
+        call = lambda: DJ.detect_kernel(dsp, masks, counts, cfg)  # noqa: E731
+        out[name] = dict(
+            frames=bsz, lanes=bsz * cfg.extrema_cap, valid=valid,
+            extrema=c["extrema"].tolist(), refined=c["refined"].tolist(),
+            refine_active=c["refine_active"].tolist(),
+            ms=cuda_ms(call, KERNEL_REPS), device_ms=graph_ms(call, KERNEL_REPS),
+            plain_ms=host_ms(plain, 3), bound_ms=t_bytes, bound_by="bytes", max_abs_err=err)
+        del dsp, masks, counts, kp, want, again
+    emit(dict(phase="detect_kernel", nvidia_smi=smi, bit_equal_to_plain_chain=True, cells=out))
+    return out
+
+
 def wide_frames(rows=None):
     """Frames A and B of phase ``wide_fallback``: CAVE-01 scene frames 00-15
     and 01-16 (tests/data/scene_oracle, the oracle-decoded pixels), each set
@@ -1602,7 +1666,7 @@ def wide_fallback_phase(dev, frames, zero_counts, read_counts, honest):
     idx, acc, best, second = match(kp)
     launches = read_counts()
     want = dict(octave_front=1, cube_pack=1, octave_front_twin=octs - 1, blur_pass=1, top2=1,
-                octave_blur=0, twin_rows=0, twin_rows_2d=0)
+                octave_blur=0, twin_rows=0, twin_rows_2d=0, detect=1)
     need({k: launches[k] for k in want} == want, f"wide_fallback: launches {launches}, want {want}")
     honest(kp, counts, "wide frames", cfg)
     nkp = kp.valid.sum(1).tolist()
@@ -1642,8 +1706,9 @@ def wide_fallback_phase(dev, frames, zero_counts, read_counts, honest):
     zero_counts()
     kF, cF = S.run_route(imgs, cfg, "front_twin", fplan)
     f_launches = read_counts()
-    need((f_launches["octave_front_twin"], f_launches["octave_front"], f_launches["cube_pack"])
-         == (octs, 0, 0), f"wide frames through kernel F: launches {f_launches}")
+    need((f_launches["octave_front_twin"], f_launches["octave_front"], f_launches["cube_pack"],
+          f_launches["detect"]) == (octs, 0, 0, 1),
+         f"wide frames through kernel F: launches {f_launches}")
     for f in FIELDS:
         same(getattr(kp, f), getattr(kF, f), f"wide frames {f}: fallback vs kernel F")
     for k in counts:
@@ -2102,7 +2167,7 @@ def main() -> int:
     # -- phase 1: device and kernel build ---------------------------------
     t0 = time.perf_counter()
     logs = kernels.build(["octave_front", "top2", "blur_pass", "twin_rows", "cube_pack",
-                          "describe"])
+                          "describe", "detect"])
     build_s = time.perf_counter() - t0
     # ptxas's register / spill report of each kernel (empty when cached).
     ptxas = {k: [ln.split(":", 1)[-1].strip() for ln in v.splitlines()
@@ -2489,7 +2554,7 @@ def main() -> int:
     launches = {"main": read_counts()}
     expect_launches("main", dict(octave_front_twin=octaves, octave_front=0, cube_pack=0,
                                  blur_pass=1, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0,
-                                 describe=1))
+                                 describe=1, detect=1))
     nkp = check_batch(kp, counts, "main path")
 
     # The plain-stack front route, counted.
@@ -2499,7 +2564,7 @@ def main() -> int:
                       cfg.ratio_threshold, device=dev)
     launches["front"] = read_counts()
     expect_launches("front", dict(octave_front=octaves, octave_front_twin=0, cube_pack=0,
-                                  blur_pass=1, top2=1))
+                                  blur_pass=1, top2=1, detect=1))
     check_batch(kf, cf, "front route")
     same_buffers(kp, kf, "front-twin route vs front route")
     for k in counts:
@@ -2522,7 +2587,7 @@ def main() -> int:
     kb, cb = S.run_route(imgs, cfg, "front_twin", fb_plan)
     launches["fallback"] = read_counts()
     expect_launches("fallback", dict(octave_front=2, cube_pack=2, octave_front_twin=octaves - 2,
-                                     blur_pass=1))
+                                     blur_pass=1, detect=1))
     check_batch(kb, cb, "front-twin fallback")
     same_buffers(kb, kp, "front-twin route with fallback octaves vs all fused")
     emit(dict(phase="front_twin_fallback", fallback_octaves=[0, 3],
@@ -2575,7 +2640,7 @@ def main() -> int:
     # rows twice (orientation, descriptors), as the JAX package's stages do.
     expect_launches("staged", dict(octave_blur=octaves * 2, blur_pass=2,
                                    twin_rows_2d=3 * octaves * 2, octave_front=0,
-                                   octave_front_twin=0, describe=octaves * 2))
+                                   octave_front_twin=0, describe=octaves * 2, detect=0))
     for i, st in enumerate(staged):
         fin = st["final"]
         need(int(fin.valid.sum()) == WANT_KP[i], f"staged frame {i}: {int(fin.valid.sum())} kp")
@@ -2601,7 +2666,7 @@ def main() -> int:
     expect_launches("xla_route", dict(octave_front=0, top2=0, octave_blur=0,
                                       blur_pass=n_blurs, twin_rows=2,
                                       octave_front_twin=0, cube_pack=0, twin_rows_2d=0,
-                                      describe=1))
+                                      describe=1, detect=0))
     check_batch(kx, cx, "XLA route")
     same_buffers(kx, kp, "XLA route vs the main path")
     emit(dict(phase="xla_route", keypoints=kx.valid.sum(1).tolist()[:2],
@@ -2620,7 +2685,7 @@ def main() -> int:
                                       kw.valid[1::2], cfg.ratio_threshold, device=dev)
     launches["window5"] = read_counts()
     expect_launches("window5", dict(octave_front=0, octave_front_twin=0, octave_blur=octaves,
-                                    blur_pass=1, twin_rows=2, top2=1))
+                                    blur_pass=1, twin_rows=2, top2=1, detect=0))
     honest(kw, cw, "window-5 route")
     nkw = kw.valid.sum(1).tolist()
     need(min(nkw) > 0, f"window-5 route: keypoint counts {nkw}")
@@ -2682,7 +2747,7 @@ def main() -> int:
     launches["demo_main"] = read_counts()
     expect_launches("demo_main", dict(octave_front_twin=doct, octave_front=0, cube_pack=0,
                                       blur_pass=1, top2=1, octave_blur=0, twin_rows=0,
-                                      twin_rows_2d=0))
+                                      twin_rows_2d=0, detect=1))
     honest(dk, dc, "demo main path", dcfg)
     for name, a, b in zip(("best", "second", "idx"),
                           top2(dk.desc[0:1], dk.desc[1:2], dk.valid[1:2]),
@@ -2704,13 +2769,14 @@ def main() -> int:
     routes = {}
     for path, run, want in (
             ("demo_fallback", lambda: S.run_route(dimgs, dcfg, "front_twin", dfb_plan),
-             dict(octave_front=2, cube_pack=2, octave_front_twin=doct - 2, blur_pass=1)),
+             dict(octave_front=2, cube_pack=2, octave_front_twin=doct - 2, blur_pass=1,
+                  detect=1)),
             ("demo_front", lambda: S.run_route(dimgs, dcfg, "front"),
-             dict(octave_front=doct, octave_front_twin=0, cube_pack=0, blur_pass=1)),
+             dict(octave_front=doct, octave_front_twin=0, cube_pack=0, blur_pass=1, detect=1)),
             ("demo_xla_route", lambda: S.detect_and_describe_batch(
                 dimgs, dx_cfg, return_counts=True, device=dev),
              dict(octave_front=0, octave_front_twin=0, octave_blur=0,
-                  blur_pass=1 + len(hks) * doct, twin_rows=2))):
+                  blur_pass=1 + len(hks) * doct, twin_rows=2, detect=0))):
         zero_counts()
         kr, cr = run()
         launches[path] = read_counts()
@@ -2722,7 +2788,7 @@ def main() -> int:
     dstaged, dscfg, draised = run_staged([o["input"] for o in od], dcfg, doct, "demo_staged")
     expect_launches("demo_staged", dict(octave_blur=doct * 2, blur_pass=2,
                                         twin_rows_2d=3 * doct * 2, octave_front=0,
-                                        octave_front_twin=0))
+                                        octave_front_twin=0, detect=0))
     for i, st in enumerate(dstaged):
         fin = st["final"]
         for f in ("x", "y", "size", "pori", "octave", "layer", "desc"):
@@ -2776,7 +2842,7 @@ def main() -> int:
         need(rc == 0, f"cli.main exited {rc}")
         expect_launches("cli", dict(octave_front_twin=octaves, blur_pass=1, top2=1,
                                     octave_front=0, cube_pack=0, octave_blur=0, twin_rows=0,
-                                    twin_rows_2d=0))
+                                    twin_rows_2d=0, detect=1))
         in_process = json.loads(printed.getvalue().strip().splitlines()[-1])
         t = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "sift_tpu_torch", *pngs, "--json",
@@ -2863,7 +2929,7 @@ def main() -> int:
         expect_launches("stitch", dict(octave_front_twin=SCENE_FRAMES * octaves,
                                        blur_pass=SCENE_FRAMES, top2=SCENE_FRAMES - 1,
                                        octave_front=0, cube_pack=0, octave_blur=0,
-                                       twin_rows=0, twin_rows_2d=0))
+                                       twin_rows=0, twin_rows_2d=0, detect=SCENE_FRAMES))
         cli_blend = blend_ran(before)
         cli_line = printed.getvalue().strip().splitlines()[-1]
         cli_png = np.asarray(PILImage.open(tmp / "pano_in_process.png"))
@@ -3333,8 +3399,9 @@ def main() -> int:
               twin_rows_2d_single_calls_ms=h_single_ms, twin_rows_2d_plain_ms=h_plain_ms,
               twin_rows_2d_library_ms=h_lib_ms))
 
-    # -- phase 9b': kernel I at the benchmark cells' shapes --------------------
+    # -- phase 9b': kernels I and J at the benchmark cells' shapes ---------------
     i_cells = describe_phase(dev, smi)
+    j_cells = detect_phase(dev, smi)
 
     # -- phase 9c: the streaming path: the loader, uint8 frames to the card,
     # the bench and the scene script, counted ------------------------------------
@@ -3426,6 +3493,17 @@ def main() -> int:
              bound_by=i_cells["resident_b16"]["bound_by"], library_ms=None,
              launches_by_path=by_path("describe"),
              device_ms=i_cells["resident_b16"]["device_ms"], cli_pair=i_cells["cli_pair"]),
+        # Kernel J replaces no TPU kernel either (the JAX package detects and
+        # refines with XLA); as I's row, resident_b16's shapes, cli_pair's
+        # beside; max_abs_err against the plain chain over every field.
+        dict(name="detect", route="cuda", source="sift_tpu_torch/csrc/detect.cu",
+             replaces=None, launches=launches["main"]["detect"],
+             max_abs_err=max(c["max_abs_err"] for c in j_cells.values()),
+             ms=j_cells["resident_b16"]["ms"], plain_ms=j_cells["resident_b16"]["plain_ms"],
+             bound_ms=j_cells["resident_b16"]["bound_ms"],
+             bound_by=j_cells["resident_b16"]["bound_by"], library_ms=None,
+             launches_by_path=by_path("detect"),
+             device_ms=j_cells["resident_b16"]["device_ms"], cli_pair=j_cells["cli_pair"]),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

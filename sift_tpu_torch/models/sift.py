@@ -11,7 +11,8 @@ takes one of three routes (``route_of``), chosen as the JAX package chooses;
      cube-packed DoG rows into two shared gather buffers, and the next
      octave's seed; no plain stack exists;
   2. ``detect_refine``: counts-assisted extrema compaction + cascaded
-     Newton refinement over the ``CubeRows``, compacted to ``kp_cap``;
+     Newton refinement over the ``CubeRows``, compacted to ``kp_cap`` (on
+     the card in one launch of kernel J);
 * ``"front"``: the same with kernel A and plain stacks (``front``, then
   ``detect_refine`` over their ``StackSpace``), the JAX package's
   ``_jit_front_batch``; reached only through ``run_route``;
@@ -67,6 +68,8 @@ from sift_tpu_torch.models.pyramid import (
     front_pyramids,
     front_twin_pyramids,
 )
+from sift_tpu_torch.ops.detect import applies as detect_kernel_applies
+from sift_tpu_torch.ops.detect import detect_kernel
 from sift_tpu_torch.ops.gather import (
     StackSpace,
     build_multi_rows,
@@ -212,8 +215,12 @@ def pyramids(imgs: torch.Tensor, cfg: SiftConfig, octaves: int | None = None):
 def detect_refine(dog_space, masks, counts, cfg: SiftConfig):
     """Front and front-twin routes, stage 2: (keypoints (B, kp_cap), counts
     dict), refined over a gather space of the DoGs (the front-twin route's
-    ``CubeRows``, the front route's ``StackSpace``)."""
+    ``CubeRows``, the front route's ``StackSpace``).  Float32 on the card
+    takes kernel J (``ops/detect.detect_kernel``: one launch, no host read);
+    the CPU and float64 take the plain chain."""
     with profiling.span("sift.detect_refine"):
+        if detect_kernel_applies(dog_space, cfg):
+            return detect_kernel(dog_space, masks, counts, cfg)
         return _refine(dog_space, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
 
 

@@ -192,6 +192,7 @@ def kernel_wrappers() -> dict:
     from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
     from sift_tpu_torch.ops.cube_pack import cube_pack_rows
     from sift_tpu_torch.ops.describe import describe_kernel
+    from sift_tpu_torch.ops.detect import detect_kernel
     from sift_tpu_torch.ops.octave_blur import octave_blur
     from sift_tpu_torch.ops.octave_front import octave_front, octave_front_twin
     from sift_tpu_torch.ops.top2 import top2
@@ -200,7 +201,7 @@ def kernel_wrappers() -> dict:
     return dict(octave_front=octave_front, top2=top2, octave_blur=octave_blur,
                 blur_pass=separable_blur_kernel, twin_rows=twin_rows_strips,
                 octave_front_twin=octave_front_twin, cube_pack=cube_pack_rows,
-                twin_rows_2d=twin_rows_2d, describe=describe_kernel)
+                twin_rows_2d=twin_rows_2d, describe=describe_kernel, detect=detect_kernel)
 
 
 def to_host(x):
