@@ -1349,7 +1349,7 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         with ImageLoader(paths, 8) as loader:
             for k, (b, n) in enumerate(BN.stage_batches(loader, BATCH, dev)):
                 _, c = S.detect_and_describe_batch(b, jcfg, return_counts=True, device=dev)
-                jax_clips += BN.clipped(c, jcfg, n, k * BATCH)
+                jax_clips += S.clipped(c, jcfg, n, k * BATCH)
 
         # (5) + (6) the scene from disk against the frames in memory, counted
         dcfg = SiftConfig()
@@ -1477,7 +1477,7 @@ def describe_phase(dev, smi):
     import numpy as np
     import torch
 
-    from sift_tpu_torch import SiftConfig
+    from sift_tpu_torch import SiftConfig, kernels
     from sift_tpu_torch.models import descriptor as De
     from sift_tpu_torch.models import sift as S
     from sift_tpu_torch.ops import describe as D
@@ -1490,9 +1490,9 @@ def describe_phase(dev, smi):
         kp, _ = S.detect_refine(dsp, masks, counts, cfg)
         del dsp, masks, counts
         allkp = S.dedup(S.orient(gsp, kp, cfg)[0], cfg)
-        before = D.describe_kernel.launches
+        before = kernels.launch_counts()["describe"]
         got = De.compute_descriptors_all(gsp, allkp, cfg)
-        need(D.describe_kernel.launches == before + 1, f"kernel I {name}: not one launch")
+        need(kernels.launch_counts()["describe"] == before + 1, f"kernel I {name}: not one launch")
         order_err = same(got, D.describe_ordered_plain(gsp, allkp, cfg,
                                                         De.desc_radius_classes(cfg)),
                          f"kernel I {name} vs describe_ordered_plain")
@@ -1540,7 +1540,7 @@ def detect_phase(dev, smi):
     Returns the kernel table's numbers by cell."""
     import numpy as np
 
-    from sift_tpu_torch import SiftConfig
+    from sift_tpu_torch import SiftConfig, kernels
     from sift_tpu_torch.models import sift as S
     from sift_tpu_torch.models.detect import extrema_from_counts
     from sift_tpu_torch.ops import detect as DJ
@@ -1555,9 +1555,9 @@ def detect_phase(dev, smi):
         def plain():
             return S._refine(dsp, *extrema_from_counts(masks, counts, cfg.extrema_cap), cfg)
 
-        before = DJ.detect_kernel.launches
+        before = kernels.launch_counts()["detect"]
         kp, c = S.detect_refine(dsp, masks, counts, cfg)
-        need(DJ.detect_kernel.launches == before + 1, f"kernel J {name}: not one launch")
+        need(kernels.launch_counts()["detect"] == before + 1, f"kernel J {name}: not one launch")
         want, wc = plain()
         err = 0.0
         for f in FIELDS:
@@ -2108,7 +2108,6 @@ def main() -> int:
     from sift_tpu_torch import SiftConfig, match_descriptors
     from sift_tpu_torch.config import gaussian_half_kernel
     from sift_tpu_torch.models import sift as S
-    from sift_tpu_torch.models.detect import refine_cascade_caps
     from sift_tpu_torch.models.match import ratio_accept
     from sift_tpu_torch.models.pyramid import blur_half_kernels, compute_initial_image
     from sift_tpu_torch.ops.blur import separable_blur
@@ -2149,20 +2148,15 @@ def main() -> int:
     from sift_tpu_torch.utils.stitch_graph import StitchGraph, chain_graph
     from sift_tpu_torch.utils.io import save_image
     from sift_tpu_torch.utils.keypoints import FIELDS, compact
-    from sift_tpu_torch.parallel.multihost import kernel_wrappers
     from sift_tpu_torch.utils.profiling import StageTimer
 
     dev = torch.device("cuda")
     smi = smi_line()
-    counted = kernel_wrappers()
-
-    def zero_counts():
-        for fn in counted.values():
-            fn.launches = 0
+    zero_counts = kernels.reset_launch_counts
 
     def read_counts():
         torch.cuda.synchronize()
-        return {k: fn.launches for k, fn in counted.items()}
+        return kernels.launch_counts()
 
     # -- phase 1: device and kernel build ---------------------------------
     t0 = time.perf_counter()
@@ -2318,11 +2312,12 @@ def main() -> int:
     for name, stacks in (("gauss", gs16), ("dog", ds16)):
         for blk in (S.TWIN_BLK, 128):
             e_err = max(e_err, check_twin_launch(stacks, blk, f"kernel E {name}"))
-        before = twin_rows_strips.launches
+        before = kernels.launch_counts()["twin_rows"]
         got = twin_rows_strips(stacks, S.TWIN_BLK)
         ref = twin_rows_strips_plain(stacks, S.TWIN_BLK)
         torch.cuda.synchronize()
-        need(twin_rows_strips.launches == before + 1, f"kernel E {name}: not one launch")
+        need(kernels.launch_counts()["twin_rows"] == before + 1,
+             f"kernel E {name}: not one launch")
         need((got.nbs, got.bases, got.shp) == (ref.nbs, ref.bases, ref.shp), f"kernel E {name} plan")
         e_err = max(e_err, same(got.rows, ref.rows, f"kernel E {name} wrapper vs plain"))
         e_rows.append(got.rows.numel())
@@ -2445,9 +2440,10 @@ def main() -> int:
     h_in = sum(v.numel() for v in h_vols)
     for blk in (128, 64):
         h_err = max(h_err, check_rows_launch(h_vols, blk, "kernel H"))
-        before = twin_rows_2d.launches
+        before = kernels.launch_counts()["twin_rows_2d"]
         got = build_multi_rows(h_vols, blk)
-        need(twin_rows_2d.launches == before + 1, "build_multi_rows: not one launch of kernel H")
+        need(kernels.launch_counts()["twin_rows_2d"] == before + 1,
+             "build_multi_rows: not one launch of kernel H")
         ref = torch.cat([twin_rows_2d_plain(v.reshape(-1, v.shape[-1]), blk) for v in h_vols])
         h_err = max(h_err, same(got.rows, ref, f"kernel H blk {blk} build_multi_rows vs plain"))
         for v in h_vols[::5]:
@@ -2517,13 +2513,8 @@ def main() -> int:
     def honest(kp, counts, what, c=cfg):
         """No capacity of ``c`` clipped a real detection and every value is
         finite."""
-        caps = dict(extrema=c.extrema_cap, refined=c.kp_cap, oriented=c.ori_cap)
-        for k, cap in caps.items():
-            need(int(counts[k].max()) <= cap, f"{what}: {k} count {counts[k].tolist()} > {cap}")
-        for ph, (cap, _) in enumerate(refine_cascade_caps(c, c.extrema_cap)):
-            need(int(counts["refine_active"][:, ph].max()) <= cap,
-                 f"{what}: Newton overflow {counts['refine_active'][:, ph].tolist()} > {cap}")
-        need(int(counts["ori_slots_max"]) <= c.ori_cand_slots, f"{what}: ori slots overflow")
+        bad = S.clipped(counts, c)
+        need(not bad, f"{what}: clipped {bad}")
         for k, v in kp.to_numpy().items():
             if v.dtype.kind == "f":
                 need(np.isfinite(v).all(), f"{what}: non-finite {k}")
@@ -2955,16 +2946,7 @@ def main() -> int:
 
     def clipped(counts, c):
         """The capacities of ``c`` that a frame's true counts exceed."""
-        over = [f"{k} {int(counts[k].max())} > {cap}" for k, cap in (
-            ("extrema", c.extrema_cap), ("refined", c.kp_cap), ("oriented", c.ori_cap))
-            if int(counts[k].max()) > cap]
-        for ph, (cap, _) in enumerate(refine_cascade_caps(c, c.extrema_cap)):
-            got = int(counts["refine_active"][:, ph].max())
-            if got > cap:
-                over.append(f"refine_active[{ph}] {got} > {cap}")
-        if int(counts["ori_slots_max"]) > c.ori_cand_slots:
-            over.append(f"ori_slots_max {int(counts['ori_slots_max'])} > {c.ori_cand_slots}")
-        return over
+        return [f"{o['count']} {o['value']} > {o['cap']}" for o in S.clipped(counts, c)]
 
     def detect_all(c):
         out = []

@@ -46,8 +46,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
+from sift_tpu_torch import kernels  # noqa: E402
 from sift_tpu_torch.models.match import match_descriptors, ratio_accept  # noqa: E402
-from sift_tpu_torch.ops.top2 import top2, top2_plain  # noqa: E402
+from sift_tpu_torch.ops.top2 import top2_plain  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
 from sift_tpu_torch.utils.profiling import time_calls  # noqa: E402
 
@@ -111,7 +112,7 @@ def main(argv=None) -> int:
         ops = 2.0 * n * n * 128
         ran_plain = False
         for name, fn in fns.items():
-            before = top2.launches
+            before = kernels.launch_counts()["top2"]
             try:
                 med, mn, _ = time_calls(fn, args.reps)
             except torch.cuda.OutOfMemoryError as e:
@@ -124,7 +125,7 @@ def main(argv=None) -> int:
             row = dict(n=n, path=name, median_ms=med * 1e3, min_ms=mn * 1e3,
                        tflops_at_min=ops / mn / 1e12)
             if name == "kernel":
-                row["launches"] = top2.launches - before
+                row["launches"] = kernels.launch_counts()["top2"] - before
             ran_plain |= name == "plain"
             print(json.dumps(row), flush=True)
         if ran_plain:

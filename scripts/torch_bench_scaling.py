@@ -45,11 +45,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from sift_tpu_torch import SiftConfig  # noqa: E402
-from sift_tpu_torch.bench import clipped, device_line  # noqa: E402
-from sift_tpu_torch.models.sift import detect_fn  # noqa: E402
+from sift_tpu_torch import SiftConfig, kernels  # noqa: E402
+from sift_tpu_torch.bench import device_line  # noqa: E402
+from sift_tpu_torch.models.sift import clipped, detect_fn  # noqa: E402
 from sift_tpu_torch.parallel.mesh import all_gather, axis_index, make_mesh, mesh_device  # noqa: E402
-from sift_tpu_torch.parallel.multihost import kernel_wrappers, spawn  # noqa: E402
+from sift_tpu_torch.parallel.multihost import spawn  # noqa: E402
 from sift_tpu_torch.utils.keypoints import FIELDS, Keypoints  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
 
@@ -86,7 +86,6 @@ def _rank(sizes, per_device_batch, h, w, iters, device):
     cfg = config_for(h, w)
     octaves = cfg.octaves_count(w * 2, h * 2)
     imgs = images(max(sizes) * per_device_batch, h, w)
-    counted = kernel_wrappers()
     out = []
     for n in sizes:
         mesh = make_mesh(data=n, kp=1, device=device, ranks=range(n))
@@ -113,12 +112,11 @@ def _rank(sizes, per_device_batch, h, w, iters, device):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-        for fn in counted.values():
-            fn.launches = 0
+        kernels.reset_launch_counts()
         counts = []
         kp = step(counts)
         sync()
-        rec = dict(launches={k: fn.launches for k, fn in counted.items()},
+        rec = dict(launches=kernels.launch_counts(),
                    clipped=[c for f, cs in enumerate(counts)
                             for c in clipped(cs, cfg, first=i * per_device_batch + f)])
         times = []

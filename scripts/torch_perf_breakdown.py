@@ -49,7 +49,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
-from sift_tpu_torch import SiftConfig  # noqa: E402
+from sift_tpu_torch import SiftConfig, kernels  # noqa: E402
 from sift_tpu_torch.config import gaussian_half_kernel  # noqa: E402
 from sift_tpu_torch.models import sift as S  # noqa: E402
 from sift_tpu_torch.models.detect import detect_extrema_all, refine_keypoints_all  # noqa: E402
@@ -58,7 +58,6 @@ from sift_tpu_torch.ops.blur import separable_blur  # noqa: E402
 from sift_tpu_torch.ops.blur_pass import separable_blur_kernel  # noqa: E402
 from sift_tpu_torch.ops.gather import StackSpace  # noqa: E402
 from sift_tpu_torch.ops.top2 import top2_plain  # noqa: E402
-from sift_tpu_torch.parallel.multihost import kernel_wrappers  # noqa: E402
 from sift_tpu_torch.utils import keypoints as kputil  # noqa: E402
 from sift_tpu_torch.utils.keypoints import FIELDS  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
@@ -108,9 +107,7 @@ def main(argv=None) -> int:
     h, w = imgs.shape[1], imgs.shape[2]
     octaves = S.octaves_for(imgs, cfg)
     smi = C.smi_line() if cuda else "cpu"
-    counted = kernel_wrappers()
-    for fn in counted.values():
-        fn.launches = 0
+    kernels.reset_launch_counts()
 
     rows = []  # (row, jax_row, median_ms, min_ms)
 
@@ -187,7 +184,7 @@ def main(argv=None) -> int:
         add(f"blur library conv2d {what}", lambda x=x: C.library_blur(x, hk), library=True)
     del base, bbase
 
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = kernels.launch_counts()
 
     # --- the stage chain's keypoints against the entry point, once ---
     ref = S.detect_and_describe_batch(imgs, cfg, device=dev)

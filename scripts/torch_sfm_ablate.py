@@ -40,9 +40,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
-from sift_tpu_torch import SiftConfig, detect_and_describe, match_descriptors  # noqa: E402
+from sift_tpu_torch import SiftConfig, detect_and_describe, kernels, match_descriptors  # noqa: E402
 from sift_tpu_torch.models.sfm import run_sfm_from_matches  # noqa: E402
-from sift_tpu_torch.parallel.multihost import kernel_wrappers  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
 
 EV = C.port_script("torch_sfm_eval")
@@ -104,22 +103,17 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    counted = kernel_wrappers()
-
-    def launches():
-        return {k: fn.launches for k, fn in counted.items()}
-
     def since(before):
-        return {k: n - before[k] for k, n in launches().items()}
+        return {k: n - before[k] for k, n in kernels.launch_counts().items()}
 
     tex = EV.texture()
     for name, ts in sequences(args.frames, args.seqs).items():
         frames, gt = EV.render_sequence(tex, ts=ts)
-        before = launches()
+        before = kernels.launch_counts()
         _, uvs, pair_matches, _ = detect_and_match(frames, dev, args.window)
         det = since(before)
         for variant in args.variants.split(","):
-            before = launches()
+            before = kernels.launch_counts()
             t0 = time.perf_counter()
             res = run_variant(uvs, pair_matches, variant, dev)
             if dev.type == "cuda":

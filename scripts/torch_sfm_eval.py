@@ -32,10 +32,9 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from sift_tpu_torch import SiftConfig  # noqa: E402
+from sift_tpu_torch import SiftConfig, kernels  # noqa: E402
 from sift_tpu_torch.models.geometry import rodrigues  # noqa: E402
 from sift_tpu_torch.models.sfm import run_sfm  # noqa: E402
-from sift_tpu_torch.parallel.multihost import kernel_wrappers  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
 
 K = np.array([[300.0, 0, 160.0], [0, 300.0, 120.0], [0, 0, 1.0]])
@@ -156,9 +155,7 @@ def evaluate(name: str, frames, gt, cfg: SiftConfig, device, loop_closure: bool 
     """One sequence through ``run_sfm`` on ``device``: its JSON record, with
     each hand-written kernel's launches in the run."""
     dev = resolve_device(device)
-    counted = kernel_wrappers()
-    for fn in counted.values():
-        fn.launches = 0
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_sfm(frames, K, cfg, ba_iters=BA_ITERS, loop_closure=loop_closure, device=dev)
     if dev.type == "cuda":
@@ -168,7 +165,7 @@ def evaluate(name: str, frames, gt, cfg: SiftConfig, device, loop_closure: bool 
     m.update(seq=name, frames=len(frames), seconds=el, registered=len(res.info["registered"]),
              points=res.info["n_points"], obs=res.info["n_obs"],
              pruned=res.info.get("pruned_obs", 0),
-             launches={k: fn.launches for k, fn in counted.items()})
+             launches=kernels.launch_counts())
     return m
 
 

@@ -48,6 +48,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
+from sift_tpu_torch import kernels  # noqa: E402
 from sift_tpu_torch.models.geometry import rodrigues  # noqa: E402
 from sift_tpu_torch.models.sfm import (  # noqa: E402
     SfmResult,
@@ -57,7 +58,6 @@ from sift_tpu_torch.models.sfm import (  # noqa: E402
     pose_graph_relax,
     run_sfm_from_matches,
 )
-from sift_tpu_torch.parallel.multihost import kernel_wrappers  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
 
 EV = C.port_script("torch_sfm_eval")
@@ -108,16 +108,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    counted = kernel_wrappers()
-    for fn in counted.values():
-        fn.launches = 0
+    kernels.reset_launch_counts()
     frames, gt = EV.render_sequence(EV.texture(), ts=loop_positions(args.frames))
     n = len(frames)
 
     def record(stage, poses, res=None, **kw):
         m = EV._metrics(EV.camera_centers(poses), gt)
         print(f"{stage}:", {k: round(v, 4) for k, v in m.items()}, flush=True)
-        m.update(stage=stage, frames=n, launches={k: fn.launches for k, fn in counted.items()},
+        m.update(stage=stage, frames=n, launches=kernels.launch_counts(),
                  **kw)
         if res is not None:
             m.update(registered=len(res.info["registered"]), points=res.info["n_points"],

@@ -50,10 +50,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark.judge import pair_keypoints  # noqa: E402
-from sift_tpu_torch import SiftConfig, match_descriptors  # noqa: E402
+from sift_tpu_torch import SiftConfig, kernels, match_descriptors  # noqa: E402
 from sift_tpu_torch.bench import check_counts, device_line  # noqa: E402
 from sift_tpu_torch.models.sift import detect_and_describe_batch, detect_stages  # noqa: E402
-from sift_tpu_torch.parallel.multihost import kernel_wrappers  # noqa: E402
 from sift_tpu_torch.utils.numerics import resolve_device  # noqa: E402
 from sift_tpu_torch.utils.stitch_graph import chain_graph, parse_stitch_graph  # noqa: E402
 
@@ -313,11 +312,6 @@ def production_sweep(args, caps, dev) -> dict:
                 desc_bytes_off_pct=100.0 * bytes_off / max(1, 128 * paired))
 
 
-def launches() -> dict:
-    """Each hand-written kernel's launches in this process so far."""
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
-
-
 def _keyed(x, y, size, pori, desc, valid) -> dict:
     """{(x, y, size, pori rounded to 9 decimals): descriptor} of the valid
     lanes."""
@@ -400,7 +394,7 @@ def main(argv=None) -> int:
     caps = tuple(int(x) for x in args.caps.split(",")) if args.caps else BENCH_CAPS
     # The bench-capacity anchor first (the exact-165 contract).
     emit(pair_anchor(dev))
-    emit(dict(production_sweep(args, caps, dev), launches=launches()))
+    emit(dict(production_sweep(args, caps, dev), launches=kernels.launch_counts()))
     return 0
 
 

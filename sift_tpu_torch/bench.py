@@ -45,9 +45,8 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.config import SiftConfig
-from sift_tpu_torch.models.detect import refine_cascade_caps
 from sift_tpu_torch.models.match import match_descriptors
-from sift_tpu_torch.models.sift import as_batch, detect_and_describe_batch
+from sift_tpu_torch.models.sift import as_batch, clipped, detect_and_describe_batch
 from sift_tpu_torch.utils import keypoints as kputil
 from sift_tpu_torch.utils.io import save_image
 from sift_tpu_torch.utils.native import ImageLoader
@@ -77,32 +76,10 @@ def _host(counts: dict) -> dict[str, np.ndarray]:
     return {k: np.asarray(torch.as_tensor(v).cpu()) for k, v in counts.items()}
 
 
-def clipped(counts: dict, cfg: SiftConfig, frames: int | None = None,
-            first: int = 0) -> list[dict]:
-    """Every count of ``detect_and_describe_batch(..., return_counts=True)``
-    above its capacity in ``cfg``, over the first ``frames`` frames of the
-    batch (default all), numbered from ``first``: extrema, refined,
-    oriented, each Newton phase's active lanes (``refine_active[p]``) and
-    the orientation slots (the batch's most, frame None)."""
-    host = _host(counts)
-    n = len(host["extrema"]) if frames is None else frames
-    out = []
-    for name, cap in (("extrema", cfg.extrema_cap), ("refined", cfg.kp_cap),
-                      ("oriented", cfg.ori_cap)):
-        out += [dict(frame=first + f, count=name, value=int(v), cap=cap)
-                for f, v in enumerate(host[name][:n]) if v > cap]
-    for p, (cap, _) in enumerate(refine_cascade_caps(cfg, cfg.extrema_cap)):
-        out += [dict(frame=first + f, count=f"refine_active[{p}]", value=int(v), cap=cap)
-                for f, v in enumerate(host["refine_active"][:n, p]) if v > cap]
-    slots = int(host["ori_slots_max"].max())
-    if slots > cfg.ori_cand_slots:
-        out.append(dict(frame=None, count="ori_slots_max", value=slots, cap=cfg.ori_cand_slots))
-    return out
-
-
 def check_counts(counts: dict, cfg: SiftConfig, what: str, frames: int | None = None,
                  first: int = 0) -> None:
-    """Raise ``CapacityError`` naming every clipped count (``clipped``)."""
+    """Raise ``CapacityError`` naming every clipped count
+    (``models.sift.clipped``)."""
     bad = clipped(counts, cfg, frames, first)
     if bad:
         raise CapacityError(f"{what}: " + "; ".join(

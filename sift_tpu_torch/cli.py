@@ -121,25 +121,17 @@ def _warn_capacity_overflow(counts, cfg, prefix: str = "") -> None:
     keeps the first CAP detections (in scan order) instead of erroring.
     Check the true per-stage counts and tell the user to raise the caps
     (SiftConfig(extrema_cap=..., kp_cap=..., ori_cap=...)) when clipped."""
-    from sift_tpu_torch.models.detect import refine_cascade_caps
+    from sift_tpu_torch.models.sift import clipped
 
-    checks = [
-        ("extrema", cfg.extrema_cap, counts["extrema"]),
-        ("refined", cfg.kp_cap, counts["refined"]),
-        ("oriented", cfg.ori_cap, counts["oriented"]),
-        ("ori_slots_max", cfg.ori_cand_slots, counts["ori_slots_max"]),
-    ]
-    ract = counts["refine_active"]  # (..., phases)
-    for p, (cap_p, _steps) in enumerate(refine_cascade_caps(cfg, cfg.extrema_cap)):
-        checks.append((f"refine_active[{p}]", cap_p, ract[..., p]))
-    for name, cap, c in checks:
-        mx = int(torch.as_tensor(c).max())
-        if mx > cap:
-            print(
-                f"{prefix}warning: {name} count {mx} exceeds capacity {cap}; "
-                f"detections were clipped — raise SiftConfig caps",
-                file=sys.stderr,
-            )
+    worst: dict = {}
+    for c in clipped(counts, cfg):
+        worst[c["count"]] = (max(c["value"], worst.get(c["count"], (0,))[0]), c["cap"])
+    for name, (mx, cap) in worst.items():
+        print(
+            f"{prefix}warning: {name} count {mx} exceeds capacity {cap}; "
+            f"detections were clipped — raise SiftConfig caps",
+            file=sys.stderr,
+        )
 
 
 def main(argv=None) -> int:

@@ -5,6 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by
 ctypes (no PyTorch headers: a build takes seconds).  The hash covers the
 source and the flags, so an edited source rebuilds.  Nothing here runs at
 import time: the package imports on machines without ``nvcc`` or a card.
+
+Every wrapper passes its launch's status to ``check``, which also counts
+the launches of the hand-written kernels (``launch_counts``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ NVCC_FLAGS = [
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+# The hand-written kernels by the name their wrappers pass to ``check``:
+# A, B, C, D, E, F, G, H, I, J.
+_LAUNCHES = dict.fromkeys(
+    ("octave_front", "top2", "octave_blur", "blur_pass", "twin_rows", "octave_front_twin",
+     "cube_pack", "twin_rows_2d", "describe", "detect"), 0)
 
 
 def nvcc_path() -> str:
@@ -96,5 +105,21 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
+    """Raise on a failed launch; else count it if ``what`` names a
+    hand-written kernel (a helper call such as ``blur_plan`` is no launch)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+    if what in _LAUNCHES:
+        _LAUNCHES[what] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """Each hand-written kernel's successful launches in this process since
+    the last ``reset_launch_counts``."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel's count."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0

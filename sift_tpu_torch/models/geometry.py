@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from sift_tpu_torch.utils import profiling
+from sift_tpu_torch.utils.numerics import device_const
 
 
 def min_eigvec(a: torch.Tensor) -> torch.Tensor:
@@ -119,7 +120,7 @@ def _project_essential(e: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) onto the essential manifold: singular values (1, 1, 0).
     The product does not depend on how the singular vectors are signed."""
     u, _, vt = torch.linalg.svd(e)
-    s = torch.tensor([1.0, 1.0, 0.0], dtype=e.dtype, device=e.device)
+    s = device_const((1.0, 1.0, 0.0), e.dtype, e.device)
     return matmul3(u, s[:, None] * vt)
 
 
@@ -216,8 +217,8 @@ def recover_pose(e: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, valid: tor
     # Ensure proper rotations.
     u = u * torch.sign(torch.linalg.det(u))
     vt = vt * torch.sign(torch.linalg.det(vt))[..., None]
-    w = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=e.dtype, device=e.device)
+    w = device_const((0.0, -1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0), e.dtype,
+                     e.device).view(3, 3)
     r_a = matmul3(matmul3(u, w), vt)
     r_b = matmul3(matmul3(u, w.T), vt)
     t_u = u[:, 2]

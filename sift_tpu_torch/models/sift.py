@@ -56,6 +56,7 @@ from sift_tpu_torch.models.detect import (
     detect_extrema_all,
     detect_octave_extrema,
     extrema_from_counts,
+    refine_cascade_caps,
     refine_keypoints_all,
     refine_octave_keypoints,
 )
@@ -278,6 +279,29 @@ def detect_and_describe_batch(images, cfg: SiftConfig | None = None,
         imgs = as_batch(images, cfg, device)
         out, counts = run_route(imgs, cfg, route_of(cfg, imgs.device))
     return (out, counts) if return_counts else out
+
+
+def clipped(counts: dict, cfg: SiftConfig, frames: int | None = None,
+            first: int = 0) -> list[dict]:
+    """Every count of ``detect_and_describe_batch(..., return_counts=True)``
+    above its capacity in ``cfg``, over the first ``frames`` frames of the
+    batch (default all), numbered from ``first``: extrema, refined,
+    oriented, the orientation slots (the batch's most, frame None) and each
+    Newton phase's active lanes (``refine_active[p]``)."""
+    host = {k: np.asarray(torch.as_tensor(v).cpu()) for k, v in counts.items()}
+    n = len(host["extrema"]) if frames is None else frames
+    out = []
+    for name, cap in (("extrema", cfg.extrema_cap), ("refined", cfg.kp_cap),
+                      ("oriented", cfg.ori_cap)):
+        out += [dict(frame=first + f, count=name, value=int(v), cap=cap)
+                for f, v in enumerate(host[name][:n]) if v > cap]
+    slots = int(host["ori_slots_max"].max())
+    if slots > cfg.ori_cand_slots:
+        out.append(dict(frame=None, count="ori_slots_max", value=slots, cap=cfg.ori_cand_slots))
+    for p, (cap, _) in enumerate(refine_cascade_caps(cfg, cfg.extrema_cap)):
+        out += [dict(frame=first + f, count=f"refine_active[{p}]", value=int(v), cap=cap)
+                for f, v in enumerate(host["refine_active"][:n, p]) if v > cap]
+    return out
 
 
 def run_route(imgs: torch.Tensor, cfg: SiftConfig, route: str,

@@ -37,8 +37,8 @@ BATCH_ROWS = 8
 
 
 def separable_blur_kernel(img: torch.Tensor, half_kernel) -> torch.Tensor:
-    """Same contract as ``separable_blur`` for (B, H, W); kernel D on CUDA.
-    ``launches`` counts kernel launches (one per blur)."""
+    """Same contract as ``separable_blur`` for (B, H, W); kernel D on CUDA
+    (one launch per blur)."""
     if img.device.type == "cpu":
         return separable_blur(img, half_kernel)
     if img.device.type != "cuda":
@@ -55,11 +55,7 @@ def separable_blur_kernel(img: torch.Tensor, half_kernel) -> torch.Tensor:
         err = _launcher()(img.data_ptr(), out.data_ptr(), bsz, h, w, taps.ctypes.data,
                           len(taps), sum_w, stream)
     kernels.check(err, "blur_pass")
-    separable_blur_kernel.launches += 1
     return out
-
-
-separable_blur_kernel.launches = 0
 
 
 @functools.cache

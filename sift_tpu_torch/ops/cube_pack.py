@@ -85,11 +85,7 @@ def cube_pack_rows(d: torch.Tensor, strip: int = 64, out: torch.Tensor | None = 
         err = _launcher()(d.data_ptr(), out.data_ptr(), b, s, h, w, strip.bit_length() - 1,
                           out.shape[1], base, torch.cuda.current_stream(d.device).cuda_stream)
     kernels.check(err, "cube_pack")
-    cube_pack_rows.launches += 1
     return out
-
-
-cube_pack_rows.launches = 0
 
 
 def walk_plain(d: torch.Tensor, strip: int, out: torch.Tensor, base: int) -> np.ndarray:

@@ -159,8 +159,7 @@ def describe_kernel(sp, kp, cfg: SiftConfig, rmax: int,
     window min(radius, ``rmax``), in one launch of kernel I on the current
     stream.  ``kp``'s x, y, size, pori: contiguous float32; octave, layer:
     int32; valid: bool; ``sp.flat`` contiguous float32, all on one card.
-    ``octave_of_volume``: as in ``compute_descriptors_all``.  ``launches``
-    counts launches."""
+    ``octave_of_volume``: as in ``compute_descriptors_all``."""
     flat = sp.flat
     bsz, n = kp.x.shape
     if flat.dtype != torch.float32 or not flat.is_contiguous():
@@ -188,13 +187,9 @@ def describe_kernel(sp, kp, cfg: SiftConfig, rmax: int,
             kp.size.data_ptr(), kp.pori.data_ptr(), kp.octave.data_ptr(), kp.layer.data_ptr(),
             kp.valid.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "describe")
-    describe_kernel.launches += 1
     profiling.count("describe.kernel_lanes", bsz * n)
     profiling.count("describe.kernel_launches", 1)
     return out
-
-
-describe_kernel.launches = 0
 
 
 def _tree_sum(a: torch.Tensor) -> torch.Tensor:

@@ -200,8 +200,7 @@ def detect_kernel(space, masks, counts, cfg: SiftConfig):
     {"extrema", "refined", "refine_active"}), in one launch of kernel J on
     the current stream.  ``space``: the DoG ``CubeRows`` or ``StackSpace``;
     ``masks[o]`` (B, n_int, H_o, nbm_o * 128) float32 and ``counts[o]`` (B,
-    n_int, H_o, nbm_o) int32, contiguous, all on one card.  ``launches``
-    counts launches."""
+    n_int, H_o, nbm_o) int32, contiguous, all on one card."""
     from sift_tpu_torch.models.detect import refine_cascade_caps
 
     lay, bsz = _check(space, masks, counts, cfg)
@@ -233,12 +232,8 @@ def detect_kernel(space, masks, counts, cfg: SiftConfig):
             desc.data_ptr(), valid.data_ptr(), extrema.data_ptr(), refined.data_ptr(),
             n_active.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "detect")
-    detect_kernel.launches += 1
     profiling.count("detect.kernel_lanes", bsz * n)
     profiling.count("detect.kernel_launches", 1)
     kp = Keypoints(x=x, y=y, octave=octave, layer=layer, size=size, pori=pori, desc=desc,
                    valid=valid)
     return kp, dict(extrema=extrema, refined=refined, refine_active=n_active)
-
-
-detect_kernel.launches = 0

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.utils import profiling
+from sift_tpu_torch.utils.numerics import device_const
 
 
 def compact_mask(flat: torch.Tensor, cap: int):
@@ -70,8 +71,7 @@ def radius_classes(candidates, r_max: int) -> list[int]:
 def class_of(radius: torch.Tensor, radii) -> torch.Tensor:
     """Each lane's class: the index of the smallest of ``radii`` that covers
     its radius (``searchsorted``), the last class above them all."""
-    with profiling.span("sift.sync.table"):
-        t = torch.tensor(radii, dtype=radius.dtype, device=radius.device)
+    t = device_const(radii, radius.dtype, radius.device)
     return torch.searchsorted(t, radius).clamp_max(len(radii) - 1)
 
 
@@ -116,29 +116,15 @@ def by_radius_class(radius: torch.Tensor, radii, chunk: int, args, fn,
 
 def lut(values, sel: torch.Tensor, dtype) -> torch.Tensor:
     """Per-lane lookup of a tiny static table: out[i] = values[sel[i]]."""
-    with profiling.span("sift.sync.table"):
-        table = torch.tensor(values, dtype=dtype, device=sel.device)
-    return table[sel.long()]
+    return device_const(values, dtype, sel.device)[sel.long()]
 
 
 class _Space:
     shapes: tuple  # (S, H, W) per octave
 
-    def lut(self, name: str, values, oct_id: torch.Tensor) -> torch.Tensor:
-        """``lut`` over a per-octave int64 table kept on the lanes' device
-        for the life of the space: building a device table from host data
-        waits for the stream, and the gathers run once per Newton step and
-        per lane chunk."""
-        tables = self.__dict__.setdefault("_tables", {})
-        t = tables.get(name)
-        if t is None:
-            with profiling.span("sift.sync.table"):
-                t = tables[name] = torch.tensor(values, dtype=torch.int64, device=oct_id.device)
-        return t[oct_id.long()]
-
     def table(self, axis: int, oct_id: torch.Tensor) -> torch.Tensor:
         """Per-lane octave dimension (0: S, 1: H, 2: W), int64."""
-        return self.lut(f"dim{axis}", [s[axis] for s in self.shapes], oct_id)
+        return lut([s[axis] for s in self.shapes], oct_id, torch.int64)
 
 
 @dataclasses.dataclass
@@ -171,7 +157,7 @@ class StackSpace(_Space):
         )
 
     def index(self, img, oct_id, s, y, x, x0):
-        origin = img.long() * self.total + self.lut("bases", self.bases, oct_id)
+        origin = img.long() * self.total + lut(self.bases, oct_id, torch.int64)
         return origin + (s * self.table(1, oct_id) + y) * self.table(2, oct_id) + x
 
 
@@ -269,21 +255,21 @@ class MultiRows(_Space):
         return self.rows.view(*lead, self.rows.shape[-2] // self.unit, self.unit * 2 * self.blk)
 
     def index(self, img, oct_id, s, y, x, x0):
-        nb = self.lut("nbs", self.nbs, oct_id)
+        nb = lut(self.nbs, oct_id, torch.int64)
         b = _twin_block(x0, x, self.blk, nb)
         if self.shp is None:
             local = (s * self.table(1, oct_id) + y) * nb + b
         else:
-            ls = self.lut("shp", self.shp, oct_id)
+            ls = lut(self.shp, oct_id, torch.int64)
             if self.nls is None:
                 r = s * self.table(1, oct_id) + y
                 group = (r >> ls) * nb
             else:
-                nl = self.lut("nls", self.nls, oct_id)
+                nl = lut(self.nls, oct_id, torch.int64)
                 r = y
                 group = ((y >> ls) * nl + torch.minimum(s.clamp_min(self.l0), self.l0 + nl - 1)) * nb
             local = ((group + b) << ls) + (r & ((1 << ls) - 1))
-        row = img.long() * self.rows.shape[-2] + self.lut("bases", self.bases, oct_id) + local
+        row = img.long() * self.rows.shape[-2] + lut(self.bases, oct_id, torch.int64) + local
         return row * (2 * self.blk) + x - b * self.blk
 
 
@@ -382,11 +368,11 @@ class CubeRows(_Space):
         return self.rows.reshape(-1)
 
     def index(self, img, oct_id, s, y, x, x0):
-        nbp = self.lut("nbps", self.nbps, oct_id)
-        ls = self.lut("lss", self.lss, oct_id)
+        nbp = lut(self.nbps, oct_id, torch.int64)
+        ls = lut(self.lss, oct_id, torch.int64)
         cb = torch.minimum(x0.long().clamp_min(0) // self.stride, nbp - 1)
         row = (
-            img.long() * self.rows.shape[-2] + self.lut("bases", self.bases, oct_id)
+            img.long() * self.rows.shape[-2] + lut(self.bases, oct_id, torch.int64)
             + (((y >> ls) * nbp + cb) << ls) + (y & ((1 << ls) - 1))
         )
         return row * self.rows.shape[-1] + s * self.sw + x - (cb * self.stride - 1)

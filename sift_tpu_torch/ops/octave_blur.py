@@ -67,11 +67,7 @@ def octave_blur(seed: torch.Tensor, half_kernels):
         err = fn(seed.data_ptr(), gauss.data_ptr(), dogs.data_ptr(), bsz, h, w, n,
                  taps.ctypes.data, ntaps.ctypes.data, sum_w.ctypes.data, stream)
     kernels.check(err, "octave_blur")
-    octave_blur.launches += 1
     return gauss, dogs
-
-
-octave_blur.launches = 0
 
 
 def _launcher():

@@ -109,11 +109,7 @@ def octave_front(seed, half_kernels, threshold: float, window_size: int = 3):
             float(np.float32(threshold)), stream,
         )
     kernels.check(err, "octave_front")
-    octave_front.launches += 1
     return gauss, dogs, mask, counts
-
-
-octave_front.launches = 0
 
 
 def _launcher():
@@ -245,8 +241,4 @@ def octave_front_twin(seed, half_kernels, threshold: float, gbuf, gbase: int, st
             g_l0, g_nl, pkbuf.shape[1], pkbase, torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(err, "octave_front_twin")
-    octave_front_twin.launches += 1
     return mask, counts, down
-
-
-octave_front_twin.launches = 0

@@ -44,12 +44,11 @@ def top2_plain(desc1, desc2, valid2):
     na = (a * a).sum(-1)
     nb = (b * b).sum(-1)
     d2 = (na[..., :, None] + nb[..., None, :] - 2.0 * g).to(torch.int32)
-    huge = torch.tensor(HUGE_D2, dtype=torch.int32, device=d2.device)
-    d2 = torch.where(valid2[..., None, :].bool(), d2, huge)
+    d2 = torch.where(valid2[..., None, :].bool(), d2, HUGE_D2)
     idx = torch.argmin(d2, dim=-1)
     best = torch.gather(d2, -1, idx[..., None])[..., 0]
     cols = torch.arange(d2.shape[-1], device=d2.device)
-    second = torch.where(cols == idx[..., None], huge, d2).amin(-1)
+    second = torch.where(cols == idx[..., None], HUGE_D2, d2).amin(-1)
     return best, second, idx.to(torch.int32)
 
 
@@ -82,11 +81,7 @@ def top2(desc1, desc2, valid2):
             pn, n, m, stream,
         )
     kernels.check(err, "top2")
-    top2.launches += 1
     return tuple(out)
-
-
-top2.launches = 0
 
 
 @functools.cache

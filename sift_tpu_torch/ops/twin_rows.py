@@ -107,22 +107,24 @@ class Table(NamedTuple):
     """A launch table: the regions in buffer order (at most MAX_REGIONS),
     the buffer's rows, and the launcher's int array (per region R, W, nb,
     ls, rpad, base, nbc, nchunks and the running sum of units before it)
-    with its address."""
+    with its address, and the kernel's name for its launch count
+    (``twin_rows``: E, ``twin_rows_2d``: H)."""
 
     regions: tuple
     rows: int
     ints: np.ndarray
     addr: int
+    kernel: str
 
 
-def _table(regions, rows) -> Table:
+def _table(regions, rows, kernel) -> Table:
     if len(regions) > MAX_REGIONS:
         raise ValueError(f"twin_rows: {len(regions)} regions, at most {MAX_REGIONS} a launch")
     first = np.cumsum([0] + [units(e) for e in regions])[:-1]
     ints = np.ascontiguousarray([list(e[1:]) + [int(f)] for e, f in zip(regions, first)],
                                 dtype=np.int32)
     ints.flags.writeable = False  # shared by every call through the cached table
-    return Table(tuple(regions), rows, ints, ints.ctypes.data)
+    return Table(tuple(regions), rows, ints, ints.ctypes.data, kernel)
 
 
 @functools.lru_cache(maxsize=256)
@@ -136,7 +138,7 @@ def strips_table(shapes: tuple, blk: int) -> Table:
             regions.append(_region(-1, 0, 0, 1, 0, base - end, end, blk))
         regions.append(_region(o, s * h, w, nb, ls, rpad, base, blk))
         end = base + nb * rpad
-    return _table(regions, total)
+    return _table(regions, total, "twin_rows")
 
 
 @functools.lru_cache(maxsize=256)
@@ -150,7 +152,7 @@ def rows_table(shapes: tuple, blk: int) -> Table:
         nb = -(-w // blk)
         regions.append(_region(i, r, w, nb, 0, r, base, blk))
         base += r * nb
-    return _table(regions, base)
+    return _table(regions, base, "twin_rows_2d")
 
 
 def walk_plain(table: Table, srcs, out) -> np.ndarray:
@@ -223,7 +225,7 @@ def launch(table: Table, srcs, out) -> None:
     with torch.cuda.device(dev):
         err = _launcher()(table.addr, (ctypes.c_void_p * n)(*ptrs), n, out.data_ptr(), bsz,
                           twin // 2, rt, torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(err, "twin_rows")
+    kernels.check(err, table.kernel)
 
 
 def twin_rows_plain(f: torch.Tensor, blk: int, ls: int, rpad: int) -> torch.Tensor:
@@ -263,8 +265,7 @@ def twin_rows_strips_plain(stacks: list[torch.Tensor], blk: int = 64) -> MultiRo
 
 def twin_rows_strips(stacks: list[torch.Tensor], blk: int = 64) -> MultiRows:
     """Same contract as ``twin_rows_strips_plain``; kernel E (one launch
-    for the whole space) on CUDA tensors.  ``launches`` counts kernel
-    launches."""
+    for the whole space) on CUDA tensors."""
     dev = stacks[0].device
     if dev.type == "cpu":
         return twin_rows_strips_plain(stacks, blk)
@@ -277,11 +278,7 @@ def twin_rows_strips(stacks: list[torch.Tensor], blk: int = 64) -> MultiRows:
     table = strips_table(shapes, blk)
     rows = torch.empty((bsz, table.rows, 2 * blk), dtype=torch.float32, device=dev)
     launch(table, stacks, rows)
-    twin_rows_strips.launches += 1
     return _space(stacks, blk, rows, plan(shapes, blk)[0])
-
-
-twin_rows_strips.launches = 0
 
 
 def twin_rows_2d_plain(mat: torch.Tensor, blk: int) -> torch.Tensor:
@@ -310,19 +307,14 @@ def twin_rows_2d_multi(mats: list[torch.Tensor], blk: int):
     table = rows_table(tuple(m.shape for m in mats), blk)
     rows = torch.empty((table.rows, 2 * blk), dtype=torch.float32, device=dev)
     launch(table, mats, rows[None])
-    twin_rows_2d.launches += 1
     return rows, tuple(e.base for e in table.regions)
 
 
 def twin_rows_2d(mat: torch.Tensor, blk: int) -> torch.Tensor:
     """Same contract as ``twin_rows_2d_plain``; kernel H on a CUDA tensor
-    (``twin_rows_2d_multi`` of one matrix).  ``launches`` counts kernel H's
-    launches, from either wrapper."""
+    (``twin_rows_2d_multi`` of one matrix)."""
     if mat.device.type == "cpu":
         return twin_rows_2d_plain(mat, blk)
     if mat.dim() != 2:
         raise ValueError("twin_rows_2d: mat must be (R, W)")
     return twin_rows_2d_multi([mat], blk)[0]
-
-
-twin_rows_2d.launches = 0

@@ -36,6 +36,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from sift_tpu_torch import kernels
 from sift_tpu_torch.utils.keypoints import Keypoints
 
 TIMEOUT_S = 600.0
@@ -100,7 +101,6 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), device="cuda",
     need gloo, since NCCL takes one rank per card.  A rank that fails fails
     the call: no rank falls back to another device or backend.
     """
-    from sift_tpu_torch import kernels
     from sift_tpu_torch.utils.numerics import resolve_device
 
     dev = resolve_device(device)
@@ -187,23 +187,6 @@ class StepResult:
     peak_bytes: int
 
 
-def kernel_wrappers() -> dict:
-    """The launch-counting wrapper of each hand-written kernel, by name."""
-    from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
-    from sift_tpu_torch.ops.cube_pack import cube_pack_rows
-    from sift_tpu_torch.ops.describe import describe_kernel
-    from sift_tpu_torch.ops.detect import detect_kernel
-    from sift_tpu_torch.ops.octave_blur import octave_blur
-    from sift_tpu_torch.ops.octave_front import octave_front, octave_front_twin
-    from sift_tpu_torch.ops.top2 import top2
-    from sift_tpu_torch.ops.twin_rows import twin_rows_2d, twin_rows_strips
-
-    return dict(octave_front=octave_front, top2=top2, octave_blur=octave_blur,
-                blur_pass=separable_blur_kernel, twin_rows=twin_rows_strips,
-                octave_front_twin=octave_front_twin, cube_pack=cube_pack_rows,
-                twin_rows_2d=twin_rows_2d, describe=describe_kernel, detect=detect_kernel)
-
-
 def to_host(x):
     """``x`` with every tensor moved to the CPU (tensors, Keypoints, dicts,
     lists and tuples of them)."""
@@ -234,7 +217,6 @@ def _run_steps_rank(steps: list[Step], device: str):
     from sift_tpu_torch.parallel.mesh import make_mesh
 
     cuda = device == "cuda"
-    wrappers = kernel_wrappers()
     meshes, outs, report = {}, [], []
 
     def resolve(a):
@@ -262,8 +244,7 @@ def _run_steps_rank(steps: list[Step], device: str):
             outs.append(None)
             report.append(None)
             continue
-        for w in wrappers.values():
-            w.launches = 0
+        kernels.reset_launch_counts()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         sync()
@@ -274,6 +255,6 @@ def _run_steps_rank(steps: list[Step], device: str):
         outs.append(out)
         report.append(StepResult(
             out=to_host(out), seconds=seconds,
-            launches={k: w.launches for k, w in wrappers.items()},
+            launches=kernels.launch_counts(),
             peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0))
     return report

@@ -10,12 +10,12 @@ so a batch of images is a leading dimension: ``x`` is (N,) or (B, N) and
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from sift_tpu_torch.ops.gather import compact_mask
-from sift_tpu_torch.utils import profiling
 
 FIELDS = ("x", "y", "octave", "layer", "size", "pori", "desc", "valid")
 
@@ -141,14 +141,12 @@ def sort_and_dedup(kp: Keypoints) -> Keypoints:
     DESC; equality for dedup ignores octave/layer (src/sift.hh:25-27).
     Invalid lanes sort to the end.
     """
-    with profiling.span("sift.sync.table"):
-        big = torch.tensor(float("inf"), dtype=kp.x.dtype, device=kp.x.device)
     v = kp.valid
     keys = [
-        torch.where(v, kp.x, big),
-        torch.where(v, kp.y, big),
-        torch.where(v, -kp.size, big),
-        torch.where(v, kp.pori, big),
+        torch.where(v, kp.x, math.inf),
+        torch.where(v, kp.y, math.inf),
+        torch.where(v, -kp.size, math.inf),
+        torch.where(v, kp.pori, math.inf),
         torch.where(v, -kp.octave, torch.full_like(kp.octave, 2**30)),
     ]
     kp = take(kp, _lexsort(keys))

@@ -5,9 +5,14 @@ round separately (no FMA contraction) on the CPU and on the card.  One trap
 remains: on CUDA, dividing a tensor by a Python number multiplies by the
 reciprocal instead.  ``xdiv`` divides by a 0-dim tensor on the operand's own
 device, which is a true IEEE division everywhere.
+
+``device_const`` is the one place a host constant reaches the card: built
+once per process for each value, dtype and device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,11 +27,28 @@ def xmul(a, b):
     return a * b
 
 
+def device_const(values, dtype, device) -> torch.Tensor:
+    """A read-only device tensor of a Python scalar (0-dim) or a flat
+    sequence, converted to ``dtype``.  Building one from host values waits
+    for the card (``sift.sync.table``), so each is built once per process
+    and kept: the cache keys on the values and their ``repr`` (exact for
+    Python and NumPy numbers, so 0.0 and -0.0 differ), the dtype and the
+    device.  Callers never write to it."""
+    if isinstance(values, list):
+        values = tuple(values)
+    return _built(repr(values), values, dtype, device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _built(key: str, values, dtype, device) -> torch.Tensor:
+    with profiling.span("sift.sync.table"):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
 def xdiv(a: torch.Tensor, b) -> torch.Tensor:
     """True division, also when ``b`` is a constant."""
     if not isinstance(b, torch.Tensor):
-        with profiling.span("sift.sync.table"):
-            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        b = device_const(b, a.dtype, a.device)
     return a / b
 
 

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from sift_tpu_torch import SiftConfig, detect_and_describe_batch, match_descriptors
-from sift_tpu_torch import bench
+from sift_tpu_torch import bench, cli
+from sift_tpu_torch.models.sift import clipped
 from sift_tpu_torch.utils import native
 from sift_tpu_torch.utils.keypoints import FIELDS
 
@@ -54,7 +55,32 @@ def test_check_counts_names_a_planted_clip(crops):
     planted["refine_active"][1, 1] = 129
     with pytest.raises(bench.CapacityError, match=r"frame 1: refine_active\[1\] 129 > cap 128"):
         bench.check_counts(planted, CFG, "planted")
-    assert bench.clipped(planted, CFG, frames=1) == []
+    assert clipped(planted, CFG, frames=1) == []
+
+
+def test_one_capacity_rule_for_the_cli_and_the_bench(capsys):
+    """``models.sift.clipped`` on one planted set of counts: the CLI warns
+    once a count, at the batch's most; the bench names every frame."""
+    cfg = SiftConfig()  # capacities 8192 / 4096 / 8192, phases 2048 / 1024, 8 slots
+    counts = dict(extrema=torch.tensor([9000, 10]), refined=torch.tensor([5000, 4097]),
+                  oriented=torch.tensor([10, 8193]), ori_slots_max=torch.tensor(9),
+                  refine_active=torch.tensor([[2049, 1024], [10, 1025]]))
+    cli._warn_capacity_overflow(counts, cfg, "a.png: ")
+    tail = "; detections were clipped — raise SiftConfig caps"
+    assert capsys.readouterr().err.splitlines() == [
+        f"a.png: warning: {c}{tail}" for c in (
+            "extrema count 9000 exceeds capacity 8192", "refined count 5000 exceeds capacity 4096",
+            "oriented count 8193 exceeds capacity 8192", "ori_slots_max count 9 exceeds capacity 8",
+            "refine_active[0] count 2049 exceeds capacity 2048",
+            "refine_active[1] count 1025 exceeds capacity 1024")]
+    want = ("frame 0: extrema 9000 > cap 8192; frame 0: refined 5000 > cap 4096; "
+            "frame 1: refined 4097 > cap 4096; frame 1: oriented 8193 > cap 8192; "
+            "frame None: ori_slots_max 9 > cap 8; frame 0: refine_active[0] 2049 > cap 2048; "
+            "frame 1: refine_active[1] 1025 > cap 1024")
+    with pytest.raises(bench.CapacityError) as err:
+        bench.check_counts(counts, cfg, "planted")
+    assert str(err.value) == f"planted: {want}"
+    assert [c["frame"] for c in clipped(counts, cfg, frames=1, first=5)] == [5, 5, None, 5]
 
 
 def test_honesty_scan_raises_on_the_stream(pngs, crops):

@@ -17,7 +17,7 @@ import torch
 
 from sift_tpu.ops import gather as JG
 from sift_tpu.ops.pallas_relayout import twin_rows_2d as jax_twin_rows_2d
-from sift_tpu_torch import SiftConfig
+from sift_tpu_torch import SiftConfig, kernels
 from sift_tpu_torch.models.descriptor import compute_descriptors_all
 from sift_tpu_torch.models.orient import orient_all
 from sift_tpu_torch.models.sift import detect_stages
@@ -55,9 +55,9 @@ def test_twin_rows_2d_equals_jax(case):
     np.testing.assert_array_equal(
         got, np.asarray(jax_twin_rows_2d(jnp.asarray(mat.numpy()), blk, interpret=True)))
     np.testing.assert_array_equal(got, np.asarray(JG.build_block_rows(jnp.asarray(vol), blk).rows))
-    before = twin_rows_2d.launches
+    before = kernels.launch_counts()["twin_rows_2d"]
     assert torch.equal(twin_rows_2d(mat, blk), torch.from_numpy(got))
-    assert twin_rows_2d.launches == before
+    assert kernels.launch_counts()["twin_rows_2d"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         twin_rows_2d(mat.to("meta"), blk)
 

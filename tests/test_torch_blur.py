@@ -12,6 +12,7 @@ import torch
 from sift_tpu.config import gaussian_half_kernel
 from sift_tpu.ops.blur import separable_blur as jax_blur
 from sift_tpu.ops.pallas_blur import pallas_separable_blur
+from sift_tpu_torch import kernels
 from sift_tpu_torch.ops.blur import separable_blur
 from sift_tpu_torch.ops.blur_pass import separable_blur_kernel
 
@@ -50,8 +51,8 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
     and counts no launch; it refuses what the kernel cannot take."""
     img = torch.from_numpy(_img((2, 40, 72), np.float32, seed=2))
     k = gaussian_half_kernel(1.6)
-    before = separable_blur_kernel.launches
+    before = kernels.launch_counts()["blur_pass"]
     assert torch.equal(separable_blur_kernel(img, k), separable_blur(img, k))
-    assert separable_blur_kernel.launches == before
+    assert kernels.launch_counts()["blur_pass"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         separable_blur_kernel(img.to("meta"), k)

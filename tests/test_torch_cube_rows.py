@@ -17,6 +17,7 @@ import torch
 
 from sift_tpu.ops import gather as JG
 from sift_tpu.ops.pallas_relayout import cube_pack_rows as jax_cube_pack_rows
+from sift_tpu_torch import kernels
 from sift_tpu_torch.ops import cube_pack as CP
 from sift_tpu_torch.ops.cube_pack import cube_pack_rows
 from sift_tpu_torch.ops.gather import (
@@ -59,9 +60,9 @@ def test_cube_rows_plain_equals_jax_versions(case, strip):
     pallas = np.asarray(jax_cube_pack_rows(jnp.asarray(d), strip, interpret=True))
     assert pallas.shape == got.shape
     np.testing.assert_array_equal(got[:, y < d.shape[2]], pallas[:, y < d.shape[2]])
-    before = cube_pack_rows.launches
+    before = kernels.launch_counts()["cube_pack"]
     np.testing.assert_array_equal(cube_pack_rows(torch.from_numpy(d), strip).numpy(), got)
-    assert cube_pack_rows.launches == before
+    assert kernels.launch_counts()["cube_pack"] == before
 
 
 def test_cube_pack_rows_writes_its_region_in_place():

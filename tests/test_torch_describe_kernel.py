@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from sift_tpu_torch import SiftConfig
+from sift_tpu_torch import SiftConfig, kernels
 from sift_tpu_torch.models import descriptor as De
 from sift_tpu_torch.models import sift as S
 from sift_tpu_torch.models.sift import detect_stages, octaves_for
@@ -65,9 +65,9 @@ def test_kernel_equals_the_order_model(main_path):
     """One launch through ``compute_descriptors_all`` gives
     ``describe_ordered_plain``'s bytes on every lane.  Tolerance: none."""
     cfg, gsp, allkp = main_path
-    before = D.describe_kernel.launches
+    before = kernels.launch_counts()["describe"]
     got = De.compute_descriptors_all(gsp, allkp, cfg)
-    assert D.describe_kernel.launches == before + 1
+    assert kernels.launch_counts()["describe"] == before + 1
     want = D.describe_ordered_plain(gsp, allkp, cfg, De.desc_radius_classes(cfg))
     assert torch.equal(got, want)
 

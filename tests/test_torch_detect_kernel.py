@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from sift_tpu_torch import SiftConfig
+from sift_tpu_torch import SiftConfig, kernels
 from sift_tpu_torch.models import sift as S
 from sift_tpu_torch.models.detect import extrema_from_counts, refine_cascade_caps
 from sift_tpu_torch.ops import detect as DJ
@@ -80,9 +80,9 @@ def assert_same(got, want):
 def run_both(sp, masks, counts, cfg):
     """(kernel J through ``detect_refine``, the plain chain), with J's one
     launch checked."""
-    before = DJ.detect_kernel.launches
+    before = kernels.launch_counts()["detect"]
     got = S.detect_refine(sp, masks, counts, cfg)
-    assert DJ.detect_kernel.launches == before + 1
+    assert kernels.launch_counts()["detect"] == before + 1
     return got, plain(sp, masks, counts, cfg)
 
 
@@ -177,16 +177,17 @@ def test_no_host_wait_inside_the_stage(dev):
 
 
 def test_launch_and_lane_counters(dev, monkeypatch):
-    """``launches`` counts launches; under a profiler ``detect.kernel_lanes``
-    adds B x extrema_cap and ``detect.kernel_launches`` one a launch."""
+    """``kernels.launch_counts`` counts launches; under a profiler
+    ``detect.kernel_lanes`` adds B x extrema_cap and ``detect.kernel_launches``
+    one a launch."""
     monkeypatch.setattr(profiling, "_counts", {})
     cfg = SiftConfig(**CAVE_VGA)
     sp, masks, counts = stage1(frames("oracle_cave00", 2), cfg, dev)
-    before = DJ.detect_kernel.launches
+    before = kernels.launch_counts()["detect"]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         for _ in range(3):
             S.detect_refine(sp, masks, counts, cfg)
-    assert DJ.detect_kernel.launches == before + 3
+    assert kernels.launch_counts()["detect"] == before + 3
     got = profiling.counters()
     assert got["detect.kernel_launches"] == 3
     assert got["detect.kernel_lanes"] == 3 * 2 * cfg.extrema_cap

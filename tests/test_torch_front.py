@@ -15,6 +15,7 @@ from sift_tpu.config import gaussian_half_kernel
 from sift_tpu.models.detect import octave_front_xla
 from sift_tpu.ops.blur import gaussian_blur
 from sift_tpu.ops.pallas_pyramid import fused_octave_front
+from sift_tpu_torch import kernels
 from sift_tpu_torch.ops.octave_front import octave_front, octave_front_plain
 
 torch.set_num_threads(2)
@@ -70,7 +71,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     """On a CPU tensor the kernel wrapper runs the plain version and counts
     no launch."""
     img = torch.from_numpy(_seed((64, 96), np.float32))
-    before = octave_front.launches
+    before = kernels.launch_counts()["octave_front"]
     for a, b in zip(octave_front(img, HKS, THR), octave_front_plain(img, HKS, THR)):
         assert torch.equal(a, b)
-    assert octave_front.launches == before
+    assert kernels.launch_counts()["octave_front"] == before

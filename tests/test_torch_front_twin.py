@@ -29,7 +29,7 @@ from sift_tpu.models import sift as JS
 from sift_tpu.ops import gather as JG
 from sift_tpu.ops import pallas_pyramid as JP
 from sift_tpu.ops.blur import gaussian_blur
-from sift_tpu_torch import SiftConfig, detect_and_describe_batch
+from sift_tpu_torch import SiftConfig, detect_and_describe_batch, kernels
 from sift_tpu_torch.models import sift as S
 from sift_tpu_torch.ops.gather import (
     CubeRows,
@@ -162,9 +162,10 @@ def test_octave_front_twin_plain_against_pallas_kernel(hw):
     grows = torch.zeros(tuple(jg.shape))
     pk = torch.zeros((2, nstrips * nbp * st, 128))
     seed = torch.from_numpy(img)
-    before = octave_front_twin.launches
+    before = kernels.launch_counts()["octave_front_twin"]
     m, c, down = octave_front_twin(seed, HKS, THR, grows, 0, st, BLK, G_L0, G_NL, pk, 0)
-    assert octave_front_twin.launches == before  # a CPU tensor: the plain version
+    # a CPU tensor: the plain version
+    assert kernels.launch_counts()["octave_front_twin"] == before
     g, d, m0, c0 = octave_front_plain(seed, HKS, THR)
     assert torch.equal(m, m0) and torch.equal(c, c0) and torch.equal(down, g[:, len(HKS) - 2])
 

@@ -11,8 +11,8 @@ import torch
 
 from sift_tpu.models.match import match_descriptors as jax_match
 from sift_tpu.ops.pallas_match import pallas_top2
-from sift_tpu_torch import match_descriptors
-from sift_tpu_torch.ops.top2 import HUGE_D2, top2, top2_plain
+from sift_tpu_torch import kernels, match_descriptors
+from sift_tpu_torch.ops.top2 import HUGE_D2, top2_plain
 
 torch.set_num_threads(2)
 
@@ -67,9 +67,9 @@ def test_batched_pairs_equal_single_pairs():
     version on CPU tensors and counts no launch."""
     cases = [_case(k) for k in ("mixed", "lone")]
     stack = [np.stack([c[i] for c in cases]) for i in range(4)]
-    before = top2.launches
+    before = kernels.launch_counts()["top2"]
     batched = match_descriptors(*stack, device="cpu")
-    assert top2.launches == before
+    assert kernels.launch_counts()["top2"] == before
     for p, c in enumerate(cases):
         single = match_descriptors(*c, device="cpu")
         for b, s in zip(batched, single):

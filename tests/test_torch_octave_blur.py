@@ -13,7 +13,7 @@ import torch
 from sift_tpu import SiftConfig as JaxConfig
 from sift_tpu.models.pyramid import build_pyramids as jax_build_pyramids
 from sift_tpu.ops.pallas_pyramid import fused_octave_blur
-from sift_tpu_torch import SiftConfig
+from sift_tpu_torch import SiftConfig, kernels
 from sift_tpu_torch.models.pyramid import blur_half_kernels, build_pyramids, front_pyramids
 from sift_tpu_torch.ops.octave_blur import octave_blur, octave_blur_plain
 
@@ -88,10 +88,10 @@ def test_octave_blur_wrapper_takes_plain_version_on_cpu():
     """On a CPU tensor kernel C's wrapper is the plain version and counts
     no launch."""
     seed = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, (2, 30, 50)).astype(np.float32))
-    before = octave_blur.launches
+    before = kernels.launch_counts()["octave_blur"]
     for a, b in zip(octave_blur(seed, HKS), octave_blur_plain(seed, HKS)):
         assert torch.equal(a, b)
-    assert octave_blur.launches == before
+    assert kernels.launch_counts()["octave_blur"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         octave_blur(seed.to("meta"), HKS)
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from sift_tpu.ops.pallas_match import pallas_top2
+from sift_tpu_torch import kernels
 from sift_tpu_torch.ops.top2 import HUGE_D2, split_for, top2, top2_plain, top2_tiled_plain
 
 torch.set_num_threads(2)
@@ -133,6 +134,6 @@ def test_split_rule():
     assert split_for(1, 10, 5) == (1, 1)
     assert split_for(1, 64, 128 * 20) == (7, 3)
     d1, d2, v2, _ = case_ragged()
-    before = top2.launches
+    before = kernels.launch_counts()["top2"]
     assert all(torch.equal(a, b) for a, b in zip(top2(d1, d2, v2), top2_plain(d1, d2, v2)))
-    assert top2.launches == before
+    assert kernels.launch_counts()["top2"] == before

@@ -17,7 +17,7 @@ import torch
 
 from sift_tpu.ops.gather import build_multi_rows
 from sift_tpu.ops.pallas_relayout import twin_rows_strips as jax_twin_rows_strips
-from sift_tpu_torch import SiftConfig
+from sift_tpu_torch import SiftConfig, kernels
 from sift_tpu_torch.models import sift as S
 from sift_tpu_torch.ops import twin_rows as TR
 from sift_tpu_torch.ops.gather import StackSpace, gather_cubes, gather_patches
@@ -128,9 +128,9 @@ def test_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors kernel E's wrapper runs the plain version and counts
     no launch; it refuses a device it has no path for."""
     vols = [torch.from_numpy(v) for v in _stacks(CASES["blk16"][0])]
-    before = twin_rows_strips.launches
+    before = kernels.launch_counts()["twin_rows"]
     twin_rows_strips(vols, 16)
-    assert twin_rows_strips.launches == before
+    assert kernels.launch_counts()["twin_rows"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         twin_rows_strips([v.to("meta") for v in vols], 16)
 
