@@ -764,7 +764,7 @@ def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
                 need(repaired, f"sfm {name}: the loop-closure repair did not run: "
                      f"{ {x: info.get(x) for x in ('loop_pairs_added', 'loop_closure_skipped')} }")
             want = dict(blur_pass=nf, octave_front_twin=nf * octaves_of(frames[0]),
-                        top2=calls["match_descriptors"], detect=nf)
+                        top2=calls["match_descriptors"], detect=nf, orient=nf)
             got = {kn: launches[name][kn] for kn in want}
             need(got == want, f"sfm {name}: launches {launches[name]}, want {want}")
             seqs[name] = dict(
@@ -1017,7 +1017,7 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
             for p in range(pairs):
                 got = {(i, int(idx[p, i])) for i in np.nonzero(acc[p].numpy())[0]}
                 need(got == want, f"parallel {what} rank {r} pair {p}: {len(got ^ want)} differ")
-    launched(0, blur_pass=1, octave_front_twin=octaves, describe=1, detect=1)
+    launched(0, blur_pass=1, octave_front_twin=octaves, describe=1, detect=1, orient=1)
     launched(1, top2=1)
     launched(2, top2=1)
 
@@ -1046,7 +1046,8 @@ def parallel_phase(dev, smi, cfg, scfg, frames, octaves, ref_kp, want, t_script)
     off2, off0 = float((dd > 2).mean()), float((dd != 0).mean())
     need(off2 < 0.001 and off0 < 0.05, f"parallel spatial: descriptor bytes off {off2}, {off0}")
     max_dev = np.abs(a[assign] - b).max(0).tolist()
-    launched(5, octave_blur=octaves, blur_pass=1, twin_rows_2d=3 * octaves, describe=octaves)
+    launched(5, octave_blur=octaves, blur_pass=1, twin_rows_2d=3 * octaves, describe=octaves,
+             orient=octaves)
 
     # -- leg 3: point-sharded bundle adjustment ------------------------------
     def problem_f32():
@@ -1359,7 +1360,8 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         n_pairs = SCENE_FRAMES - 1
         n_batches = -(-SCENE_FRAMES // 8)
         expect("stream_scene", dict(blur_pass=n_batches, octave_front_twin=n_batches * octaves,
-                                    top2=-(-n_pairs // 4), describe=n_batches, detect=n_batches))
+                                    top2=-(-n_pairs // 4), describe=n_batches, detect=n_batches,
+                                    orient=n_batches))
         refs = []
         for lo in range(0, SCENE_FRAMES, 8):
             chunk = scene[lo:lo + 8]
@@ -1383,7 +1385,7 @@ def stream_phase(dev, smi, cfg, frames, main_kp, oracle_set, octaves, zero_count
         BN.stream_sweeps(paths, scfg, BATCH, 1, 8, dev)
         launches["stream"] = read_counts()
         expect("stream", dict(blur_pass=1, octave_front_twin=octaves, top2=1, describe=1,
-                              detect=1))
+                              detect=1, orient=1))
 
         # (7) pairwise_sq_dists on the card against the exact integers and kernel B
         rng = np.random.default_rng(7)
@@ -1521,6 +1523,74 @@ def describe_phase(dev, smi):
         del gsp, kp, allkp, got, plain
     emit(dict(phase="describe_kernel", nvidia_smi=smi, bit_equal_to_order_model=True,
               cells=out))
+    return out
+
+
+# Kernel K's float32 operations a window sample (csrc/describe.cu), a
+# transcendental call counted as one: the two gradients 2, the magnitude 4,
+# the angle 1, the bin 5 (shift, scale, divide, round), the weight 2 and the
+# histogram's sum 1.
+ORIENT_OPS = 15
+
+
+def orient_phase(dev, smi):
+    """Kernel K at the benchmark cells' shapes, on the main path's gauss
+    space and refined keypoints: bit for bit against
+    ``orient_ordered_plain``, again against itself, against the plain chain
+    up to the order of sums (the same candidates, pori within 1e-5 rad: the
+    measured max |diff| is the table's ``max_abs_err``); timed (CUDA events
+    around the wrapper, and the device time from a graph replay) beside the
+    plain chain and the bound (each valid lane's (2r + 3)^2 patch read once,
+    the keypoint fields read once, the candidates written once; or its
+    window's operations).  Returns the kernel table's numbers by cell."""
+    import numpy as np
+
+    from sift_tpu_torch import SiftConfig, kernels
+    from sift_tpu_torch.models import orient as O
+    from sift_tpu_torch.models import sift as S
+    from sift_tpu_torch.ops import orient as OK
+    from sift_tpu_torch.utils.keypoints import FIELDS
+
+    out = {}
+    for name, (files, caps) in DESCRIBE_CELLS.items():
+        cfg = SiftConfig(**caps)
+        imgs = S.as_batch(np.stack([np.load(DATA / f)["input"] for f in files]), cfg, dev)
+        gsp, dsp, masks, counts = S.front_twin(imgs, cfg)
+        kp, _ = S.detect_refine(dsp, masks, counts, cfg)
+        del dsp, masks, counts
+        before = kernels.launch_counts()["orient"]
+        cand, peaks = O.orient_all(gsp, kp, cfg)
+        need(kernels.launch_counts()["orient"] == before + 1, f"kernel K {name}: not one launch")
+        want, pw = OK.orient_ordered_plain(gsp, kp, cfg, O.ori_radius_classes(cfg))
+        again, pa = O.orient_all(gsp, kp, cfg)
+        for f in FIELDS:
+            same(getattr(cand, f), getattr(want, f), f"kernel K {name} {f} vs the order model")
+            same(getattr(again, f), getattr(cand, f), f"kernel K {name} {f}, two launches")
+        need(int(peaks) == int(pw) == int(pa), f"kernel K {name}: max_peaks {int(peaks)}, "
+             f"model {int(pw)}")
+        plain, pp = O.orient_plain(gsp, kp, cfg)
+        for f in ("valid", "x", "y", "size", "octave", "layer"):
+            same(getattr(cand, f), getattr(plain, f), f"kernel K {name} {f} vs the plain chain")
+        v = cand.valid
+        err = float((cand.pori - plain.pori)[v].abs().max())
+        need(err <= 1e-5 and int(peaks) == int(pp),
+             f"kernel K {name} vs the plain chain: pori off by {err}")
+        radius = O._lane_args(gsp, kp, cfg, None)[1][O._RADIUS]
+        r = radius.clamp(0, O.ori_radius_bound(cfg)).double()
+        lanes = kp.valid.numel()
+        t_bytes = (float(((2 * r + 3) ** 2).sum()) * 4 + lanes * (5 * 4 + 1)
+                   + v.numel() * (6 * 4 + 1)) / HBM_BPS * 1e3
+        t_ops = float(((2 * r + 1) ** 2).sum()) * ORIENT_OPS / F32_OPS * 1e3
+        b_ms, b_by = bound(t_bytes, t_ops)
+        call = lambda: O.orient_all(gsp, kp, cfg)  # noqa: E731
+        out[name] = dict(
+            frames=len(files), lanes=lanes, valid=int(kp.valid.sum()), candidates=int(v.sum()),
+            max_peaks=int(peaks), ms=cuda_ms(call, KERNEL_REPS),
+            device_ms=graph_ms(call, KERNEL_REPS),
+            plain_ms=host_ms(lambda: O.orient_plain(gsp, kp, cfg), 3),
+            bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops, max_abs_err=err)
+        del gsp, kp, cand, want, again, plain
+    emit(dict(phase="orient_kernel", nvidia_smi=smi, bit_equal_to_order_model=True, cells=out))
     return out
 
 
@@ -1666,7 +1736,7 @@ def wide_fallback_phase(dev, frames, zero_counts, read_counts, honest):
     idx, acc, best, second = match(kp)
     launches = read_counts()
     want = dict(octave_front=1, cube_pack=1, octave_front_twin=octs - 1, blur_pass=1, top2=1,
-                octave_blur=0, twin_rows=0, twin_rows_2d=0, detect=1)
+                octave_blur=0, twin_rows=0, twin_rows_2d=0, detect=1, orient=1)
     need({k: launches[k] for k in want} == want, f"wide_fallback: launches {launches}, want {want}")
     honest(kp, counts, "wide frames", cfg)
     nkp = kp.valid.sum(1).tolist()
@@ -2140,7 +2210,7 @@ def main() -> int:
     from sift_tpu_torch.models.descriptor import class_counts as desc_class_counts
     from sift_tpu_torch.models.descriptor import compute_descriptors_plain, desc_radius_classes
     from sift_tpu_torch.models.orient import class_counts as ori_class_counts
-    from sift_tpu_torch.models.orient import ori_radius_classes, orient_all
+    from sift_tpu_torch.models.orient import ori_radius_classes, orient_plain
     from sift_tpu_torch.models import blend as BL
     from sift_tpu_torch.models import stitch as ST
     from sift_tpu_torch.models.cylindrical import stitch_scene_cylindrical
@@ -2545,7 +2615,7 @@ def main() -> int:
     launches = {"main": read_counts()}
     expect_launches("main", dict(octave_front_twin=octaves, octave_front=0, cube_pack=0,
                                  blur_pass=1, top2=1, octave_blur=0, twin_rows=0, twin_rows_2d=0,
-                                 describe=1, detect=1))
+                                 describe=1, detect=1, orient=1))
     nkp = check_batch(kp, counts, "main path")
 
     # The plain-stack front route, counted.
@@ -2555,7 +2625,7 @@ def main() -> int:
                       cfg.ratio_threshold, device=dev)
     launches["front"] = read_counts()
     expect_launches("front", dict(octave_front=octaves, octave_front_twin=0, cube_pack=0,
-                                  blur_pass=1, top2=1, detect=1))
+                                  blur_pass=1, top2=1, detect=1, orient=1))
     check_batch(kf, cf, "front route")
     same_buffers(kp, kf, "front-twin route vs front route")
     for k in counts:
@@ -2578,7 +2648,7 @@ def main() -> int:
     kb, cb = S.run_route(imgs, cfg, "front_twin", fb_plan)
     launches["fallback"] = read_counts()
     expect_launches("fallback", dict(octave_front=2, cube_pack=2, octave_front_twin=octaves - 2,
-                                     blur_pass=1, detect=1))
+                                     blur_pass=1, detect=1, orient=1))
     check_batch(kb, cb, "front-twin fallback")
     same_buffers(kb, kp, "front-twin route with fallback octaves vs all fused")
     emit(dict(phase="front_twin_fallback", fallback_octaves=[0, 3],
@@ -2631,7 +2701,8 @@ def main() -> int:
     # rows twice (orientation, descriptors), as the JAX package's stages do.
     expect_launches("staged", dict(octave_blur=octaves * 2, blur_pass=2,
                                    twin_rows_2d=3 * octaves * 2, octave_front=0,
-                                   octave_front_twin=0, describe=octaves * 2, detect=0))
+                                   octave_front_twin=0, describe=octaves * 2, detect=0,
+                                   orient=octaves * 2))
     for i, st in enumerate(staged):
         fin = st["final"]
         need(int(fin.valid.sum()) == WANT_KP[i], f"staged frame {i}: {int(fin.valid.sum())} kp")
@@ -2657,7 +2728,7 @@ def main() -> int:
     expect_launches("xla_route", dict(octave_front=0, top2=0, octave_blur=0,
                                       blur_pass=n_blurs, twin_rows=2,
                                       octave_front_twin=0, cube_pack=0, twin_rows_2d=0,
-                                      describe=1, detect=0))
+                                      describe=1, detect=0, orient=1))
     check_batch(kx, cx, "XLA route")
     same_buffers(kx, kp, "XLA route vs the main path")
     emit(dict(phase="xla_route", keypoints=kx.valid.sum(1).tolist()[:2],
@@ -2676,7 +2747,7 @@ def main() -> int:
                                       kw.valid[1::2], cfg.ratio_threshold, device=dev)
     launches["window5"] = read_counts()
     expect_launches("window5", dict(octave_front=0, octave_front_twin=0, octave_blur=octaves,
-                                    blur_pass=1, twin_rows=2, top2=1, detect=0))
+                                    blur_pass=1, twin_rows=2, top2=1, detect=0, orient=1))
     honest(kw, cw, "window-5 route")
     nkw = kw.valid.sum(1).tolist()
     need(min(nkw) > 0, f"window-5 route: keypoint counts {nkw}")
@@ -2738,7 +2809,7 @@ def main() -> int:
     launches["demo_main"] = read_counts()
     expect_launches("demo_main", dict(octave_front_twin=doct, octave_front=0, cube_pack=0,
                                       blur_pass=1, top2=1, octave_blur=0, twin_rows=0,
-                                      twin_rows_2d=0, detect=1))
+                                      twin_rows_2d=0, detect=1, orient=1))
     honest(dk, dc, "demo main path", dcfg)
     for name, a, b in zip(("best", "second", "idx"),
                           top2(dk.desc[0:1], dk.desc[1:2], dk.valid[1:2]),
@@ -2761,13 +2832,14 @@ def main() -> int:
     for path, run, want in (
             ("demo_fallback", lambda: S.run_route(dimgs, dcfg, "front_twin", dfb_plan),
              dict(octave_front=2, cube_pack=2, octave_front_twin=doct - 2, blur_pass=1,
-                  detect=1)),
+                  detect=1, orient=1)),
             ("demo_front", lambda: S.run_route(dimgs, dcfg, "front"),
-             dict(octave_front=doct, octave_front_twin=0, cube_pack=0, blur_pass=1, detect=1)),
+             dict(octave_front=doct, octave_front_twin=0, cube_pack=0, blur_pass=1, detect=1,
+                  orient=1)),
             ("demo_xla_route", lambda: S.detect_and_describe_batch(
                 dimgs, dx_cfg, return_counts=True, device=dev),
              dict(octave_front=0, octave_front_twin=0, octave_blur=0,
-                  blur_pass=1 + len(hks) * doct, twin_rows=2, detect=0))):
+                  blur_pass=1 + len(hks) * doct, twin_rows=2, detect=0, orient=1))):
         zero_counts()
         kr, cr = run()
         launches[path] = read_counts()
@@ -2779,7 +2851,7 @@ def main() -> int:
     dstaged, dscfg, draised = run_staged([o["input"] for o in od], dcfg, doct, "demo_staged")
     expect_launches("demo_staged", dict(octave_blur=doct * 2, blur_pass=2,
                                         twin_rows_2d=3 * doct * 2, octave_front=0,
-                                        octave_front_twin=0, detect=0))
+                                        octave_front_twin=0, detect=0, orient=doct * 2))
     for i, st in enumerate(dstaged):
         fin = st["final"]
         for f in ("x", "y", "size", "pori", "octave", "layer", "desc"):
@@ -2833,7 +2905,7 @@ def main() -> int:
         need(rc == 0, f"cli.main exited {rc}")
         expect_launches("cli", dict(octave_front_twin=octaves, blur_pass=1, top2=1,
                                     octave_front=0, cube_pack=0, octave_blur=0, twin_rows=0,
-                                    twin_rows_2d=0, detect=1))
+                                    twin_rows_2d=0, detect=1, orient=1))
         in_process = json.loads(printed.getvalue().strip().splitlines()[-1])
         t = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "sift_tpu_torch", *pngs, "--json",
@@ -2920,7 +2992,8 @@ def main() -> int:
         expect_launches("stitch", dict(octave_front_twin=SCENE_FRAMES * octaves,
                                        blur_pass=SCENE_FRAMES, top2=SCENE_FRAMES - 1,
                                        octave_front=0, cube_pack=0, octave_blur=0,
-                                       twin_rows=0, twin_rows_2d=0, detect=SCENE_FRAMES))
+                                       twin_rows=0, twin_rows_2d=0, detect=SCENE_FRAMES,
+                                       orient=SCENE_FRAMES))
         cli_blend = blend_ran(before)
         cli_line = printed.getvalue().strip().splitlines()[-1]
         cli_png = np.asarray(PILImage.open(tmp / "pano_in_process.png"))
@@ -3240,8 +3313,8 @@ def main() -> int:
     gsp, dsp, ms_, cs = S.front_twin(imgs, cfg)
     kpr, _ = S.detect_refine(dsp, ms_, cs, cfg)
     del dsp, ms_, cs
-    cand_c, peaks_c = orient_all(gsp, kpr, cfg)
-    cand_w, peaks_w = orient_all(gsp, kpr, cfg, classes=False)
+    cand_c, peaks_c = orient_plain(gsp, kpr, cfg)
+    cand_w, peaks_w = orient_plain(gsp, kpr, cfg, classes=False)
     for f in ("valid", "x", "y", "size", "octave", "layer"):
         same(getattr(cand_c, f), getattr(cand_w, f), f"orientation candidates {f}, classes "
              "vs the worst-case window")
@@ -3256,14 +3329,14 @@ def main() -> int:
         g, d, m, n = S.front_twin(imgs, cfg)
         k, _ = S.detect_refine(d, m, n, cfg)
         del d, m, n
-        a = S.dedup(compact(orient_all(g, k, cfg, classes=c)[0], cfg.ori_cap), cfg)
+        a = S.dedup(compact(orient_plain(g, k, cfg, classes=c)[0], cfg.ori_cap), cfg)
         desc = compute_descriptors_plain(g, a, cfg, classes=c)
         match_descriptors(desc[0::2], a.valid[0::2], desc[1::2], a.valid[1::2],
                           cfg.ratio_threshold, device=dev)
 
     def stage_pair(c):
         """(orient stage, describe stage, sweep) ms."""
-        return (host_ms(lambda: compact(orient_all(gsp, kpr, cfg, classes=c)[0], cfg.ori_cap),
+        return (host_ms(lambda: compact(orient_plain(gsp, kpr, cfg, classes=c)[0], cfg.ori_cap),
                         TIMED_SWEEPS),
                 host_ms(lambda: compute_descriptors_plain(gsp, allkp, cfg, classes=c),
                         TIMED_SWEEPS),
@@ -3381,9 +3454,10 @@ def main() -> int:
               twin_rows_2d_single_calls_ms=h_single_ms, twin_rows_2d_plain_ms=h_plain_ms,
               twin_rows_2d_library_ms=h_lib_ms))
 
-    # -- phase 9b': kernels I and J at the benchmark cells' shapes ---------------
+    # -- phase 9b': kernels I, J and K at the benchmark cells' shapes ---------------
     i_cells = describe_phase(dev, smi)
     j_cells = detect_phase(dev, smi)
+    k_cells = orient_phase(dev, smi)
 
     # -- phase 9c: the streaming path: the loader, uint8 frames to the card,
     # the bench and the scene script, counted ------------------------------------
@@ -3486,6 +3560,17 @@ def main() -> int:
              bound_by=j_cells["resident_b16"]["bound_by"], library_ms=None,
              launches_by_path=by_path("detect"),
              device_ms=j_cells["resident_b16"]["device_ms"], cli_pair=j_cells["cli_pair"]),
+        # Kernel K replaces no TPU kernel either (the JAX package assigns
+        # orientations with XLA); as I's row, resident_b16's shapes, cli_pair's
+        # beside; max_abs_err: pori (rad) against the plain chain.
+        dict(name="orient", route="cuda", source="sift_tpu_torch/csrc/describe.cu",
+             replaces=None, launches=launches["main"]["orient"],
+             max_abs_err=max(c["max_abs_err"] for c in k_cells.values()),
+             ms=k_cells["resident_b16"]["ms"], plain_ms=k_cells["resident_b16"]["plain_ms"],
+             bound_ms=k_cells["resident_b16"]["bound_ms"],
+             bound_by=k_cells["resident_b16"]["bound_by"], library_ms=None,
+             launches_by_path=by_path("orient"),
+             device_ms=k_cells["resident_b16"]["device_ms"], cli_pair=k_cells["cli_pair"]),
     ]
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -35,10 +35,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 # The hand-written kernels by the name their wrappers pass to ``check``:
-# A, B, C, D, E, F, G, H, I, J.
+# A, B, C, D, E, F, G, H, I, J, K.
 _LAUNCHES = dict.fromkeys(
     ("octave_front", "top2", "octave_blur", "blur_pass", "twin_rows", "octave_front_twin",
-     "cube_pack", "twin_rows_2d", "describe", "detect"), 0)
+     "cube_pack", "twin_rows_2d", "describe", "detect", "orient"), 0)
 
 
 def nvcc_path() -> str:

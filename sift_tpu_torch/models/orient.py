@@ -7,9 +7,12 @@ radius round(3 * 1.5 * size) is bounded (refined layers stay in
 36-bin histogram is a masked one-hot contraction; the reference's in-place
 sequential smoothing is reproduced bin by bin on the (bins, lanes) layout.
 
-Only valid lanes are computed (invalid lanes would contribute nothing).
-Outside the float64 parity profile each lane reads the smallest window of
-the radius classes (11, 13, R) that covers its own radius
+Float32 on the card runs the whole stage as one launch of kernel K
+(``ops/orient.orient_kernel``), each lane in the window of its own radius.
+The CPU and float64 run the plain chain (``orient_plain``): only valid
+lanes are computed (invalid lanes would contribute nothing), and outside
+the float64 parity profile each lane reads the smallest window of the
+radius classes (11, 13, R) that covers its own radius
 (``gather.by_radius_class``); float64 reads the one (2R+3)^2 window, as the
 JAX package does.
 """
@@ -30,6 +33,7 @@ from sift_tpu_torch.ops.gather import (
     lut,
     radius_classes,
 )
+from sift_tpu_torch.ops.orient import orient_kernel
 from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.keypoints import Keypoints
 from sift_tpu_torch.utils.numerics import round_half_away, xdiv
@@ -55,9 +59,11 @@ def ori_radius_classes(cfg: SiftConfig, classes: bool = True) -> list[int]:
     return radius_classes((11, 13), r_max)
 
 
-def _histograms(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
-                wl, hl, nb: int, r: int, fast: bool):
-    """(L, nb) raw orientation histograms of L valid lanes."""
+def _samples(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom, wl, hl,
+             nb: int, r: int, fast: bool):
+    """(contributions, bins), each (L, (2r + 1)^2) in row-major sample
+    order, of L valid lanes' windows of radius ``r``: masked samples
+    contribute exact zeros."""
     dtype = edenom.dtype
     dev = edenom.device
     p = 2 * r + 3
@@ -86,8 +92,15 @@ def _histograms(sp, img, oct_sel, layer_c, xc, yc, x, y, radius, edenom,
     h_idx = round_half_away(xdiv(nb * (angle + math.pi), M_PI2)).to(torch.int64)
     h_idx = torch.where(h_idx < nb, h_idx, torch.zeros_like(h_idx))  # src/sift.cpp:490
     contrib = torch.where(in_radius & in_img, w_exp * magnitude, torch.zeros_like(magnitude))
-    onehot = F.one_hot(h_idx.reshape(len(x), -1), nb).to(dtype)
-    return torch.bmm(contrib.reshape(len(x), 1, -1), onehot)[:, 0]
+    return contrib.reshape(len(x), -1), h_idx.reshape(len(x), -1)
+
+
+def _histograms(sp, args, nb: int, r: int, fast: bool):
+    """(L, nb) raw orientation histograms of L valid lanes (``_lane_args``'
+    arguments): the samples' one-hot contraction."""
+    contrib, h_idx = _samples(sp, *args, nb, r, fast)
+    onehot = F.one_hot(h_idx, nb).to(contrib.dtype)
+    return torch.bmm(contrib[:, None], onehot)[:, 0]
 
 
 # Position of the radius among ``_lane_args``'s per-lane arguments.
@@ -132,20 +145,31 @@ def class_counts(sp, kp: Keypoints, cfg: SiftConfig, classes: bool = True) -> li
 
 
 def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
-               octave_of_volume: tuple[int, ...] | None = None, classes: bool = True):
+               octave_of_volume: tuple[int, ...] | None = None):
     """Orientation candidates of a (B, n) keypoint buffer in initial-image
     coordinates.  Returns (candidates (B, n * slots) in input-image
     coordinates, in (lane, bin) order with a validity mask, and max_peaks:
     the most peaks any valid keypoint had; > slots means candidates were
     dropped).  ``octave_of_volume``: the true octave of each volume of
     ``sp`` when it does not start at octave 0 (the staged path's
-    one-octave spaces).  ``classes=False``: every lane in the worst-case
-    window (``ori_radius_classes``)."""
-    bsz, n = kp.x.shape
+    one-octave spaces).  Float32 on the card takes kernel K
+    (``ops/orient.orient_kernel``: one launch, no host read, each lane in
+    its own window); the CPU and float64 take ``orient_plain``."""
+    if kp.x.device.type == "cuda" and kp.x.dtype == torch.float32:
+        return orient_kernel(sp, kp.map(lambda a: a.contiguous()), cfg, ori_radius_bound(cfg),
+                             octave_of_volume)
+    return orient_plain(sp, kp, cfg, octave_of_volume)
+
+
+def orient_plain(sp, kp: Keypoints, cfg: SiftConfig,
+                 octave_of_volume: tuple[int, ...] | None = None, classes: bool = True):
+    """Same contract as ``orient_all``, in plain PyTorch on any device: the
+    valid lanes compacted, ``_histograms`` per radius class in lane chunks.
+    ``classes=False``: every lane in the worst-case window
+    (``ori_radius_classes``)."""
     dtype = kp.x.dtype
     dev = kp.x.device
     nb = cfg.num_bins
-    slots = cfg.ori_cand_slots
     fast = dtype != torch.float64
 
     lanes, args = _lane_args(sp, kp, cfg, octave_of_volume)
@@ -153,9 +177,22 @@ def orient_all(sp, kp: Keypoints, cfg: SiftConfig,
     if len(lanes):
         hist = by_radius_class(
             args[_RADIUS], ori_radius_classes(cfg, classes), chunk, args,
-            lambda a, r: _histograms(sp, *a, nb, r, fast), stage="orient")
+            lambda a, r: _histograms(sp, a, nb, r, fast), stage="orient")
     else:
         hist = torch.zeros((0, nb), dtype=dtype, device=dev)
+    return candidates(kp, cfg, lanes, hist)
+
+
+def candidates(kp: Keypoints, cfg: SiftConfig, lanes, hist):
+    """``orient_all``'s result from the raw histograms ``hist`` (L, nb) of
+    the valid lanes ``lanes`` (flat indices) of ``kp``: the reference's
+    smoothing, peaks and parabolic interpolation, the first ``slots`` peaks
+    of each lane."""
+    bsz, n = kp.x.shape
+    dtype = kp.x.dtype
+    dev = kp.x.device
+    nb = cfg.num_bins
+    slots = cfg.ori_cand_slots
 
     # In-place circular smoothing, twice (src/sift.cpp:496-504): updated
     # bins feed later ones, exactly as the reference's loop.

@@ -13,7 +13,7 @@ from sift_tpu_torch.ops.top2 import top2
 from sift_tpu_torch.utils.numerics import device_const, xdiv
 
 KERNELS = ("octave_front", "top2", "octave_blur", "blur_pass", "twin_rows", "octave_front_twin",
-           "cube_pack", "twin_rows_2d", "describe", "detect")
+           "cube_pack", "twin_rows_2d", "describe", "detect", "orient")
 
 
 def tables(fn):

@@ -1,8 +1,8 @@
 """Radius classes of orientation and descriptors (float32 only).
 
-Outside the float64 parity profile each valid lane of stage 3
-(``orient_all``) and of stage 5's plain chain (``compute_descriptors_plain``,
-the CPU's descriptors) reads the smallest window of the JAX package's
+Outside the float64 parity profile each valid lane of stage 3's plain
+chain (``orient_plain``, the CPU's orientation) and of stage 5's
+(``compute_descriptors_plain``, the CPU's descriptors) reads the smallest window of the JAX package's
 dispatch classes that covers its own radius: (11, 13, 17) for orientation
 and (20, 24, 28, 32, 36, 40) for descriptors at the default
 configuration.  A larger window adds only masked exact zeros, so classes
@@ -132,7 +132,7 @@ def test_classes_keep_keypoints_candidates_and_descriptors(run32):
     inputs (1 of 223,232, off by 1, when each side describes the candidates
     of its own orientation run)."""
     cfg, kp, gsp = run32
-    cands = [O.orient_all(gsp, kp, cfg, classes=c) for c in (True, False)]
+    cands = [O.orient_plain(gsp, kp, cfg, classes=c) for c in (True, False)]
     (a, pa), (b, pb) = cands
     assert int(pa) == int(pb)
     for f in ("valid", "x", "y", "size", "octave", "layer"):
@@ -155,7 +155,7 @@ def test_float64_ignores_classes():
     gaussians, dogs = S.pyramids(S.as_batch(img[None], cfg, "cpu"), cfg)
     kp, _ = S._detect_refine_fused(dogs, cfg, False)
     gsp = StackSpace.build(gaussians)
-    (a, _), (b, _) = (O.orient_all(gsp, kp, cfg, classes=c) for c in (True, False))
+    (a, _), (b, _) = (O.orient_plain(gsp, kp, cfg, classes=c) for c in (True, False))
     for f in FIELDS:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     allkp = S.dedup(K.compact(a, cfg.ori_cap), cfg)
