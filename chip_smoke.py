@@ -671,7 +671,7 @@ def sfm_phase(dev, smi, zero_counts, read_counts, octaves_of):
     cfg = SiftConfig(**SFM_CAPS)
     k = np.array(SFM_K)
     tex = ev.texture()
-    stages = ("detect_and_describe", "match_descriptors", "_geometric_verify",
+    stages = ("detect_and_describe_batch", "match_descriptors", "_geometric_verify",
               "_candidate_counts", "_register_frame", "_triangulate_new", "_finish_global_ba",
               "pose_graph_relax", "_fill_unregistered_by_interpolation")
     timer, passes, init_pairs, inputs = StageTimer(), [], [], []

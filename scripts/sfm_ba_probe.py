@@ -94,7 +94,7 @@ def main() -> int:
 
     n_frames, poses, points, track_obs, track_point, registered, fa, fb, fxy, cxy, uv_of = a[:11]
     pts = np.asarray(points)
-    obs_cam, obs_pt, obs_uv = PF._observations(track_obs, track_point, registered, uv_of)
+    obs_cam, obs_pt, obs_uv = PF._observations(track_obs, track_point, registered)
     fixed = np.zeros(n_frames, bool)
     fixed[[fa, fb]] = True
     arrays = dict(cams=poses, points=pts, obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=obs_uv,

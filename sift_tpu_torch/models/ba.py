@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.models.geometry import mat_vecs, project_points, rodrigues
+from sift_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -333,14 +334,23 @@ def ba_solve(pr: BAProblem, iters: int = 20, lam0: float = 1e-3,
     ``huber_delta`` (pixels): robustify with a Huber loss (IRLS weights in
     every step, Huber objective in the accept/reject test).  None keeps the
     plain L2 objective.  Returns (cams, points, info dict with cost trace).
+
+    Each cost read is a host wait, marked ``ba.sync.cost``; the counters
+    ``ba.observations`` and ``ba.points`` take the problem's size a solve,
+    ``ba.iterations`` its LM steps.
     """
+    profiling.count("ba.observations", int(pr.obs_cam.shape[0]))
+    profiling.count("ba.points", int(pr.points.shape[0]))
     lam = lam0
-    cost = float(_cost(pr, pr.cams, pr.points, huber_delta))
+    with profiling.span("ba.sync.cost"):
+        cost = float(_cost(pr, pr.cams, pr.points, huber_delta))
     trace = [cost]
     for _ in range(iters):
+        profiling.count("ba.iterations", 1)
         lam_t = torch.tensor(lam, dtype=pr.cams.dtype, device=pr.cams.device)
         cams_new, pts_new = ba_step(pr, lam_t, huber_delta)
-        new_cost = float(_cost(pr, cams_new, pts_new, huber_delta))
+        with profiling.span("ba.sync.cost"):
+            new_cost = float(_cost(pr, cams_new, pts_new, huber_delta))
         if new_cost < cost and np.isfinite(new_cost):
             pr = dataclasses.replace(pr, cams=cams_new, points=pts_new)
             cost = new_cost

@@ -16,10 +16,20 @@ without a dtype, it computes in float32 in production (x64 off); the port
 computes in float32 there too.  The core driver is match-driven
 (``run_sfm_from_matches``) so tests can feed synthetic correspondences with
 ground truth; ``run_sfm`` wraps it with real detection and matching.
+
+The tracks are listed once (``_track_groups``), then indexed by frame
+(``_TrackIndex``): the registration's candidate counts, PnP's candidates,
+the triangulation's new tracks and partners, the BA's observation rows and
+the initial pair's shared-track tally read those arrays, not a pass over
+every track, with the JAX package's orders and tie rules.
+
+Its spans (``sfm.<stage>``, the host waits ``sfm.sync.<kind>``) and
+counters are listed in ``utils/profiling``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -43,9 +53,13 @@ from sift_tpu_torch.models.geometry import (
     triangulate,
 )
 from sift_tpu_torch.models.match import match_descriptors
-from sift_tpu_torch.models.sift import detect_and_describe
+from sift_tpu_torch.models.sift import detect_and_describe_batch
 from sift_tpu_torch.models.stitch import _apply_h, ransac_homography
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import resolve_device
+
+RANSAC_HYPOTHESES = 1024
+_NULL = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -56,46 +70,164 @@ class SfmResult:
     info: dict
 
 
-class _Tracks:
-    """Union-find feature tracks over (frame, feature) observations."""
+def _track_groups(pair_matches, min_track_len: int = 2) -> list[list[tuple[int, int]]]:
+    """The tracks of the pairs' matches as the JAX package keeps its
+    union-find's groups, on arrays: a union of (i, a) and (j, b) for every
+    match in order, then the groups in the order of their first
+    observation's first union (its ``_Tracks.groups``' order), each
+    sorted, without those shorter than ``min_track_len`` or with two
+    observations in one frame.  The components come from minimum-label
+    propagation with pointer jumping over the match edges."""
+    ends = []
+    for (i, j), m in pair_matches.items():
+        m = np.asarray(m, np.int64).reshape(-1, 2)
+        ends.append(np.stack([np.stack([np.full(len(m), i), m[:, 0]], 1),
+                              np.stack([np.full(len(m), j), m[:, 1]], 1)], 1).reshape(-1, 2))
+    seq = np.concatenate(ends) if ends else np.zeros((0, 2), np.int64)
+    if not len(seq):
+        return []
+    width = int(seq[:, 1].max()) + 1
+    keys, first, node = np.unique(seq[:, 0] * width + seq[:, 1], return_index=True,
+                                  return_inverse=True)
+    a, b = node[0::2], node[1::2]
+    label = np.arange(len(keys))
+    while True:
+        new = label.copy()
+        low = np.minimum(label[a], label[b])
+        np.minimum.at(new, a, low)
+        np.minimum.at(new, b, low)
+        new = new[new]
+        if np.array_equal(new, label):
+            break
+        label = new
+    # each component's first appearance orders it; its members by (frame, feature)
+    met = np.full(len(keys), len(seq))
+    np.minimum.at(met, label, first)
+    order = np.lexsort((keys, met[label]))
+    comp = label[order]
+    cut = np.nonzero(comp[1:] != comp[:-1])[0] + 1
+    frames, feats = (keys[order] // width).tolist(), (keys[order] % width).tolist()
+    out = []
+    for lo, hi in zip(np.concatenate([[0], cut]).tolist(), np.append(cut, len(order)).tolist()):
+        if hi - lo >= min_track_len and len(set(frames[lo:hi])) == hi - lo:
+            out.append(list(zip(frames[lo:hi], feats[lo:hi])))
+    return out
 
-    def __init__(self):
-        self.parent: dict[tuple[int, int], tuple[int, int]] = {}
 
-    def find(self, k):
-        p = self.parent.setdefault(k, k)
-        if p != k:
-            r = self.find(p)
-            self.parent[k] = r
-            return r
-        return k
+def _ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The concatenated ``arange(s, s + n)`` of each (start, length)."""
+    ends = np.cumsum(lens)
+    return np.arange(ends[-1] if len(ends) else 0) - np.repeat(ends - lens - starts, lens)
 
-    def union(self, a, b):
-        ra, rb = self.find(a), self.find(b)
-        if ra != rb:
-            self.parent[ra] = rb
 
-    def groups(self):
-        out: dict[tuple[int, int], list[tuple[int, int]]] = {}
-        for k in list(self.parent):
-            out.setdefault(self.find(k), []).append(k)
-        return list(out.values())
+class _TrackIndex(list):
+    """The tracks (a list of sorted (frame, feature) lists, which it is)
+    indexed by frame, built once per track list:
+
+    * ``obs_t``, ``obs_f``, ``obs_feat``, ``obs_uv``: every observation, in
+      track order and within a track in frame order (``obs_uv`` float64);
+    * ``row``: (tracks, frames) observation row of each track in each frame,
+      -1 where the track is absent; ``by_frame[f]``: the tracks in frame
+      ``f``, ascending;
+    * ``cand``: each frame's tracks that hold a point, kept up to date by
+      ``gained`` as tracks get their points.
+    """
+
+    def __init__(self, track_obs, n_frames: int, uv_of=None, keypoints_uv=None):
+        super().__init__(track_obs)
+        lens = np.fromiter((len(g) for g in track_obs), np.int64, len(track_obs))
+        self.n_frames = n_frames
+        self.start = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        flat = np.asarray([o for g in track_obs for o in g], np.int64).reshape(-1, 2)
+        self.obs_t = np.repeat(np.arange(len(track_obs)), lens)
+        self.obs_f, self.obs_feat = flat[:, 0], flat[:, 1]
+        self.obs_uv = np.zeros((len(flat), 2))
+        if keypoints_uv is not None:
+            for f in range(n_frames):
+                at = np.nonzero(self.obs_f == f)[0]
+                if len(at):
+                    self.obs_uv[at] = np.asarray(keypoints_uv[f], np.float64)[self.obs_feat[at]]
+        elif len(flat):
+            self.obs_uv[:] = [uv_of(int(f), int(x)) for f, x in flat]
+        self.row = np.full((len(track_obs), n_frames), -1, np.int64)
+        self.row[self.obs_t, self.obs_f] = np.arange(len(flat))
+        self.by_frame = [np.nonzero(self.row[:, f] >= 0)[0] for f in range(n_frames)]
+        self.cand = np.zeros(n_frames, np.int64)
+
+    def gained(self, ts) -> None:
+        """Tracks ``ts`` just got their points: one candidate more in each
+        of their frames."""
+        ts = np.asarray(ts, np.int64)
+        rows = _ranges(self.start[ts], self.start[ts + 1] - self.start[ts])
+        self.cand += np.bincount(self.obs_f[rows], minlength=self.n_frames)
+
+    def candidates(self, f: int, track_point: np.ndarray):
+        """(tracks, observation rows) of frame ``f``'s tracks that hold a
+        point, in track order."""
+        ts = self.by_frame[f]
+        ts = ts[track_point[ts] >= 0]
+        return ts, self.row[ts, f]
+
+    def pair_tally(self):
+        """The frame pairs that tracks share, in the order in which a pass
+        over the tracks (each track's pairs in frame order) first meets
+        them: (pairs (K, 2), rows of frame a (M,), rows of frame b (M,),
+        bounds (K + 1,)): pair k's tracks' observation rows are
+        ``[bounds[k]:bounds[k + 1]]`` of the row arrays, in track order."""
+        # every (row a, row b > a) of one track, in (a, b) order: that pass's
+        n_obs = len(self.obs_t)
+        c = self.start[1:][self.obs_t] - 1 - np.arange(n_obs)
+        ra = np.repeat(np.arange(n_obs), c)
+        rb = ra + 1 + _ranges(np.zeros(n_obs, np.int64), c)
+        key = self.obs_f[ra] * self.n_frames + self.obs_f[rb]
+        if len(key) == 0:
+            return np.zeros((0, 2), np.int64), ra, rb, np.zeros(1, np.int64)
+        if self.n_frames * self.n_frames <= 2**16:  # a stable sort of 16-bit keys is a radix sort
+            key = key.astype(np.uint16)
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        starts = np.concatenate([[0], np.nonzero(ks[1:] != ks[:-1])[0] + 1])
+        counts = np.diff(np.append(starts, len(ks)))
+        met = np.argsort(order[starts], kind="stable")
+        by = order[_ranges(starts[met], counts[met])]
+        pairs = ks[starts][met].astype(np.int64)
+        return (np.stack([pairs // self.n_frames, pairs % self.n_frames], 1), ra[by], rb[by],
+                np.concatenate([[0], np.cumsum(counts[met])]))
 
 
 def _normalize(uv: np.ndarray, k: np.ndarray) -> np.ndarray:
     return (uv - k[[0, 1], [2, 2]]) / k[[0, 1], [0, 1]]
 
 
+def _wait(kind: str, dev):
+    """The span ``sfm.sync.<kind>`` of a host wait for the card ``dev``
+    (none on the CPU, where nothing waits)."""
+    return profiling.span(f"sfm.sync.{kind}") if torch.device(dev).type != "cpu" else _NULL
+
+
 def _f32(a, dev) -> torch.Tensor:
     """Host numbers -> float32 on ``dev``, rounded to nearest (``jnp.asarray
     (a, jnp.float32)``)."""
-    return torch.as_tensor(np.asarray(a), device=dev).to(torch.float32)
+    with _wait("upload", dev):
+        return torch.as_tensor(np.asarray(a), device=dev).to(torch.float32)
+
+
+def _mask(v, dev) -> torch.Tensor:
+    """A host mask on ``dev``."""
+    with _wait("upload", dev):
+        return torch.as_tensor(v, device=dev)
+
+
+def _host(t: torch.Tensor, kind: str) -> np.ndarray:
+    """``t`` as numpy, the host's wait for it marked ``sfm.sync.<kind>``."""
+    with _wait(kind, t.device):
+        return t.cpu().numpy()
 
 
 def _rot(rvecs, dev) -> np.ndarray:
     """Rotation matrices of (..., 3) rotation vectors: ``rodrigues`` in
     float32 on ``dev``, returned as float64 numpy."""
-    return rodrigues(_f32(rvecs, dev)).cpu().numpy().astype(np.float64)
+    return _host(rodrigues(_f32(rvecs, dev)), "rotation").astype(np.float64)
 
 
 def _geometric_verify(
@@ -144,13 +276,14 @@ def _geometric_verify(
         u2 = np.zeros((cap, 2))
         u1[:n_m] = p1
         u2[:n_m] = p2
-        v_t = torch.as_tensor(v, device=dev)
+        v_t = _mask(v, dev)
 
         # Homography hypothesis (pixel space, 2 px inlier threshold).
         u1_t = _f32(u1, dev)
-        h_px, h_inl, _ = ransac_homography(u1_t, _f32(u2, dev), v_t, 1024, 2.0 * sigma_px,
-                                           seed + 7 * i + j)
-        proj = _apply_h(h_px, u1_t).cpu().numpy()
+        profiling.count("sfm.ransac_lanes", RANSAC_HYPOTHESES * cap)
+        h_px, h_inl, _ = ransac_homography(u1_t, _f32(u2, dev), v_t, RANSAC_HYPOTHESES,
+                                           2.0 * sigma_px, seed + 7 * i + j)
+        proj = _host(_apply_h(h_px, u1_t), "verify")
         err2_h = ((proj[:n_m] - u2[:n_m]) ** 2).sum(1)
         # Keep band: 2 sigma, decoupled from the RANSAC fit bands (the JAX
         # package's calibration on its rendered evaluation).
@@ -166,9 +299,10 @@ def _geometric_verify(
             continue
 
         q1_t, q2_t = _f32(q1, dev), _f32(q2, dev)
-        e, e_inl, _ = ransac_essential(q1_t, q2_t, v_t, 1024, thr, seed + 7 * i + j)
+        profiling.count("sfm.ransac_lanes", RANSAC_HYPOTHESES * cap)
+        e, e_inl, _ = ransac_essential(q1_t, q2_t, v_t, RANSAC_HYPOTHESES, thr, seed + 7 * i + j)
         # Sampson distance in normalized units -> px^2 via the mean focal.
-        err2_e = _sampson_err2(e[None], q1_t, q2_t).cpu().numpy()[0][:n_m] * (f_mean * f_mean)
+        err2_e = _host(_sampson_err2(e[None], q1_t, q2_t), "verify")[0][:n_m] * (f_mean * f_mean)
 
         lam2 = float(np.log(4.0 * n_m))
         gric_e = (np.minimum(err2_e / sig2, 2.0 * (4 - 3)).sum()
@@ -179,8 +313,8 @@ def _geometric_verify(
             stats[(i, j)] = dict(
                 model=("H" if gric_h < gric_e else "E"),
                 gric_e=float(gric_e), gric_h=float(gric_h), n=n_m,
-                e_inl=int(e_inl.cpu().numpy()[:n_m].sum()),
-                h_inl=int(h_inl.cpu().numpy()[:n_m].sum()),
+                e_inl=int(_host(e_inl, "verify")[:n_m].sum()),
+                h_inl=int(_host(h_inl, "verify")[:n_m].sum()),
             )
         # The UNION of both models' keep bands: each model has structure
         # the other cannot represent (H: off-plane parallax; E: planar or
@@ -193,22 +327,15 @@ def _geometric_verify(
     return out
 
 
-def _observations(track_obs, track_point, registered, uv_of):
-    """The (cam, point, uv) rows of every triangulated track in the
-    registered frames."""
-    obs_cam, obs_pt, obs_uv = [], [], []
-    reg = set(registered)
-    for t, g in enumerate(track_obs):
-        pid = track_point[t]
-        if pid < 0:
-            continue
-        for f, feat in g:
-            if f in reg:
-                obs_cam.append(f)
-                obs_pt.append(pid)
-                obs_uv.append(uv_of(f, feat))
-    return (np.asarray(obs_cam, np.int32), np.asarray(obs_pt, np.int32),
-            np.asarray(obs_uv, np.float64).reshape(-1, 2))
+def _observations(tix, track_point, registered):
+    """The (cam, point, uv) rows of every triangulated track of the
+    ``_TrackIndex`` ``tix`` in the registered frames, in track order and
+    within a track in frame order."""
+    reg = np.zeros(tix.n_frames, bool)
+    reg[np.asarray(registered, np.int64)] = True
+    keep = (track_point[tix.obs_t] >= 0) & reg[tix.obs_f]
+    return (tix.obs_f[keep].astype(np.int32), track_point[tix.obs_t[keep]].astype(np.int32),
+            tix.obs_uv[keep])
 
 
 def _problem(poses, pts, obs_cam, obs_pt, obs_uv, fixed, fxy, cxy, dev):
@@ -228,9 +355,12 @@ def _ba_pass(
     """One bundle-adjustment pass over the currently registered frames.
 
     Returns (poses, points-list) updated in the same containers' formats.
+    ``track_obs``: a ``_TrackIndex``, or the track list.
     """
     pts = np.asarray(points)
-    obs_cam, obs_pt, obs_uv = _observations(track_obs, track_point, registered, uv_of)
+    if not isinstance(track_obs, _TrackIndex):
+        track_obs = _TrackIndex(track_obs, n_frames, uv_of)
+    obs_cam, obs_pt, obs_uv = _observations(track_obs, track_point, registered)
     if len(obs_cam) < 12 or len(pts) < 8:
         return poses, points
     fixed = np.ones(n_frames, bool)  # unregistered cams must not move
@@ -239,85 +369,98 @@ def _ba_pass(
     fixed[fa] = True
     fixed[fb] = True  # freezes gauge incl. scale
     pr = _problem(poses, pts, obs_cam, obs_pt, obs_uv, fixed, fxy, cxy, resolve_device(device))
-    cams_opt, pts_opt, _ = ba_solve(pr, iters, huber_delta=3.0)
-    return (cams_opt.cpu().numpy().astype(np.float64),
-            list(pts_opt.cpu().numpy().astype(np.float64)))
+    with profiling.span("sfm.ba"):
+        cams_opt, pts_opt, _ = ba_solve(pr, iters, huber_delta=3.0)
+    return (_host(cams_opt, "ba").astype(np.float64),
+            list(_host(pts_opt, "ba").astype(np.float64)))
 
 
 def _register_frame(
-    f, track_obs, track_point, points, poses, registered, uv_of, k, seed, device="cuda",
+    f, tix, track_point, points, poses, registered, k, seed, device="cuda",
 ) -> bool:
-    """PnP-register frame ``f`` against the current map (consensus-gated).
+    """PnP-register frame ``f`` against the current map (consensus-gated):
+    its candidates are the frame's tracks that hold a point, in track
+    order (``_TrackIndex.candidates``).
 
     Returns False (leaving ``poses``/``registered`` untouched) when the
     frame has too few 2D-3D candidates or a weak consensus: callers
     re-queue it and retry after more neighbors register.
     """
     dev = resolve_device(device)
-    cands = []
-    for t, g in enumerate(track_obs):
-        gd = dict(g)
-        if f in gd and track_point[t] >= 0:
-            cands.append((t, gd[f]))
-    if len(cands) < 8:
+    ts, rows = tix.candidates(f, track_point)
+    if len(ts) < 8:
         return False
-    cap_f = max(64, 1 << int(np.ceil(np.log2(len(cands)))))
+    n_cand = len(ts)
+    cap_f = max(64, 1 << int(np.ceil(np.log2(n_cand))))
     x3 = np.zeros((cap_f, 3))
     x2 = np.zeros((cap_f, 2))
     v = np.zeros(cap_f, bool)
-    for n, (t, feat) in enumerate(cands[:cap_f]):
-        x3[n] = points[track_point[t]]
-        x2[n] = _normalize(uv_of(f, feat), k)
-        v[n] = True
-    rvec, tvec, _, cnt = ransac_pnp(_f32(x3, dev), _f32(x2, dev), torch.as_tensor(v, device=dev),
-                                    1024, 8e-3, seed + f)
+    x3[:n_cand] = [points[p] for p in track_point[ts]]
+    x2[:n_cand] = _normalize(tix.obs_uv[rows], k)
+    v[:n_cand] = True
+    profiling.count("sfm.ransac_lanes", RANSAC_HYPOTHESES * cap_f)
+    rvec, tvec, _, cnt = ransac_pnp(_f32(x3, dev), _f32(x2, dev), _mask(v, dev),
+                                    RANSAC_HYPOTHESES, 8e-3, seed + f)
     # Gate on PnP consensus: a frame with essentially no inliers would
     # seed triangulation and BA with a garbage pose.
-    n_cand = int(np.count_nonzero(v))
-    if int(cnt) < max(6, n_cand // 10):
+    if int(_host(cnt, "pnp")) < max(6, n_cand // 10):
         return False
-    poses[f, :3] = rvec.cpu().numpy().astype(np.float64)
-    poses[f, 3:] = tvec.cpu().numpy().astype(np.float64)
+    poses[f, :3] = _host(rvec, "pnp").astype(np.float64)
+    poses[f, 3:] = _host(tvec, "pnp").astype(np.float64)
     registered.append(f)
     return True
 
 
-def _triangulate_new(
-    f, track_obs, track_point, points, poses, registered, uv_of, k, device="cuda",
-) -> None:
-    """Triangulate tracks newly observable from freshly-registered ``f``.
+def _partners(f, tix, track_point, registered, uv_of):
+    """(track, partner frame, partner's row, f's row) of each of frame
+    ``f``'s tracks that hold no point, in track order, that has a partner.
 
-    Partner = the max-disparity registered frame, skipping near-zero
-    baselines (a revisited viewpoint pairs almost-identical frames;
-    triangulating them puts garbage points at quasi-infinite depth that
-    survive cheirality).  The 0.75 px floor only skips near-identical
-    viewpoints.  All of the frame's new tracks are triangulated in one
-    batch on ``device`` (each row its own partner pose).
+    Partner = the max-disparity frame of ``registered[:-1]`` (the first in
+    that order on a tie), skipping near-zero baselines (a revisited
+    viewpoint pairs almost-identical frames; triangulating them puts
+    garbage points at quasi-infinite depth that survive cheirality).  The
+    0.75 px floor only skips near-identical viewpoints.  The disparity is
+    ``uv_of``'s, in its dtype."""
+    pos = {rf: n for n, rf in enumerate(registered[:-1])}
+    ts = tix.by_frame[f]
+    new = []
+    for t in ts[track_point[ts] < 0].tolist():
+        a, b = tix.start[t], tix.start[t + 1]
+        frames = tix.obs_f[a:b].tolist()
+        feats = tix.obs_feat[a:b].tolist()
+        uv_f = uv_of(f, feats[frames.index(f)])
+        best_pf, best_d = -1, 0.0
+        for _, rf, feat in sorted((pos[g], g, x) for g, x in zip(frames, feats) if g in pos):
+            d = float(np.linalg.norm(uv_of(rf, feat) - uv_f))
+            if d > best_d:
+                best_pf, best_d = rf, d
+        if best_pf >= 0 and best_d >= 0.75:
+            new.append((t, best_pf, tix.row[t, best_pf], tix.row[t, f]))
+    return new
+
+
+def _triangulate_new(
+    f, tix, track_point, points, poses, registered, uv_of, k, device="cuda",
+) -> None:
+    """Triangulate tracks newly observable from freshly-registered ``f``,
+    each with its partner (``_partners``).  All of the frame's new tracks
+    are triangulated in one batch on ``device`` (each row its own partner
+    pose).
     """
     dev = resolve_device(device)
-    new = []
-    for t, g in enumerate(track_obs):
-        gd = dict(g)
-        if track_point[t] < 0 and f in gd:
-            best_pf, best_d = -1, 0.0
-            for rf in registered[:-1]:
-                if rf not in gd:
-                    continue
-                d = float(np.linalg.norm(uv_of(rf, gd[rf]) - uv_of(f, gd[f])))
-                if d > best_d:
-                    best_pf, best_d = rf, d
-            if best_pf >= 0 and best_d >= 0.75:
-                new.append((t, best_pf, gd[best_pf], gd[f]))
+    new = _partners(f, tix, track_point, registered, uv_of)
     if not new:
         return
-    q1 = np.stack([_normalize(uv_of(pf, fp), k) for _, pf, fp, _ in new])
-    q2 = np.stack([_normalize(uv_of(f, ff), k) for _, _, _, ff in new])
+    q1 = _normalize(tix.obs_uv[[r for _, _, r, _ in new]], k)
+    q2 = _normalize(tix.obs_uv[[r for _, _, _, r in new]], k)
     pfs = [pf for _, pf, _, _ in new]
     rots = _rot(np.concatenate([poses[pfs, :3], poses[f:f + 1, :3]]), dev)
     r1s, rf = rots[:-1], rots[-1]
     t1s = poses[pfs, 3:]
     xn = triangulate(_f32(q1, dev), _f32(q2, dev), _f32(r1s, dev), _f32(t1s, dev),
-                     _f32(rf, dev), _f32(poses[f, 3:], dev)).cpu().numpy().astype(np.float64)
+                     _f32(rf, dev), _f32(poses[f, 3:], dev))
+    xn = _host(xn, "triangulate").astype(np.float64)
+    got = []
     for n, (t, _, _, _) in enumerate(new):
         # Cheirality in both views.
         xc1 = r1s[n] @ xn[n] + t1s[n]
@@ -325,6 +468,8 @@ def _triangulate_new(
         if xc1[2] > 0.05 and xc2[2] > 0.05 and np.isfinite(xn[n]).all():
             track_point[t] = len(points)
             points.append(xn[n])
+            got.append(t)
+    tix.gained(got)
 
 
 def _so3_log(r: torch.Tensor) -> torch.Tensor:
@@ -532,11 +677,53 @@ def _fill_unregistered_by_interpolation(
     return out, filled
 
 
-def _candidate_counts(remaining, track_obs, track_point) -> dict[int, int]:
-    """Each remaining frame's current count of 2D-3D candidates: a pass over
-    every track for every frame, as in the JAX package."""
-    return {f: sum(1 for t, g in enumerate(track_obs) if track_point[t] >= 0 and f in dict(g))
-            for f in remaining}
+def _candidate_counts(remaining, tix) -> dict[int, int]:
+    """Each remaining frame's current count of 2D-3D candidates (its tracks
+    that hold a point), as ``_TrackIndex.gained`` keeps it."""
+    return {f: int(tix.cand[f]) for f in remaining}
+
+
+def _init_pair(tix, uv_of) -> tuple[int, int]:
+    """Among frame pairs sharing at least 16 tracks, the one with the
+    largest median disparity * sqrt(count), the first met on a tie (the
+    order of ``_TrackIndex.pair_tally``); (0, 1) when none qualifies.
+
+    Each pair's score is first taken from float64 disparities of the
+    index's pixels; the pairs within 1e-5 of the best of those (which
+    holds every pair within rounding of the true best) are scored again
+    from ``uv_of``'s pixels, in their dtype, as the JAX package scores
+    every pair, and the first maximum of those wins."""
+    best = (0, min(1, tix.n_frames - 1))
+    pairs, ra, rb, bounds = tix.pair_tally()
+    count = np.diff(bounds)
+    if not (count >= 16).any():
+        return best
+    # each pair's median disparity: its sorted disparities' middle one or two
+    # each pair's median disparity: its sorted disparities' middle one or
+    # two, sorted by pair + disparity / span (ulp 1e-9 of it: within 1e-6
+    # px of the true order's medians, which the slack below covers)
+    d = np.linalg.norm(tix.obs_uv[ra] - tix.obs_uv[rb], axis=1)
+    if not np.isfinite(d).all():
+        d[~np.isfinite(d)] = np.nan
+    span = float(np.nanmax(d, initial=0.0)) + 1.0
+    d = d[np.argsort(np.repeat(np.arange(len(count)), count) + d / span)]
+    lo, hi = bounds[:-1] + (count - 1) // 2, bounds[:-1] + count // 2
+    live = count >= 16
+    rough = np.full(len(count), np.nan)
+    rough[live] = 0.5 * (d[lo[live]] + d[hi[live]]) * np.sqrt(count[live])
+    if np.isnan(rough).all():
+        return best
+    top = np.nanmax(rough)
+    best_score = -1.0
+    for n in np.nonzero(rough >= top * (1.0 - 1e-5) - 1e-4)[0]:
+        i, j = int(pairs[n, 0]), int(pairs[n, 1])
+        sel = slice(bounds[n], bounds[n + 1])
+        disp = np.median([np.linalg.norm(uv_of(i, a) - uv_of(j, b)) for a, b in
+                          zip(tix.obs_feat[ra[sel]].tolist(), tix.obs_feat[rb[sel]].tolist())])
+        score = disp * np.sqrt(count[n])
+        if score > best_score:
+            best_score, best = score, (i, j)
+    return best
 
 
 def run_sfm_from_matches(
@@ -575,43 +762,26 @@ def run_sfm_from_matches(
     cxy = np.array([k[0, 2], k[1, 2]])
 
     if verify_pairs:
-        pair_matches = _geometric_verify(keypoints_uv, pair_matches, k, seed, device=dev)
-
-    # ---- tracks ----
-    tr = _Tracks()
-    for (i, j), m in pair_matches.items():
-        for a, b in m:
-            tr.union((i, int(a)), (j, int(b)))
-    groups = [g for g in tr.groups() if len(g) >= min_track_len]
-    # Reject tracks with two observations in the same frame (ambiguous).
-    groups = [g for g in groups if len({f for f, _ in g}) == len(g)]
-    track_obs = [sorted(g) for g in groups]
-    n_tracks = len(track_obs)
+        with profiling.span("sfm.verify"):
+            pair_matches = _geometric_verify(keypoints_uv, pair_matches, k, seed, device=dev)
 
     def uv_of(f, feat):
         return keypoints_uv[f][feat]
 
-    # ---- choose the initialization pair ----
-    # Among frame pairs sharing enough tracks, pick max median disparity *
-    # sqrt(count): small-baseline pairs make the two-view geometry (and the
-    # BA gauge, which freezes both init cameras) ill-conditioned.
-    shared: dict[tuple[int, int], list] = {}
-    for t, g in enumerate(track_obs):
-        gd = dict(g)
-        fs = sorted(gd)
-        for ai in range(len(fs)):
-            for bi in range(ai + 1, len(fs)):
-                shared.setdefault((fs[ai], fs[bi]), []).append((t, gd))
-    best_score = -1.0
-    fa, fb = 0, min(1, n_frames - 1)
-    for (i, j), lst in shared.items():
-        if len(lst) < 16:
-            continue
-        disp = np.median([np.linalg.norm(uv_of(i, gd[i]) - uv_of(j, gd[j])) for t, gd in lst])
-        score = disp * np.sqrt(len(lst))
-        if score > best_score:
-            best_score = score
-            fa, fb = i, j
+    # ---- tracks ----
+    with profiling.span("sfm.tracks"):
+        # Tracks with two observations in the same frame are rejected
+        # (ambiguous).
+        tix = _TrackIndex(_track_groups(pair_matches, min_track_len), n_frames,
+                          keypoints_uv=keypoints_uv)
+        n_tracks = len(tix)
+        profiling.count("sfm.tracks", n_tracks)
+
+        # ---- choose the initialization pair ----
+        # Among frame pairs sharing enough tracks, pick max median disparity
+        # * sqrt(count): small-baseline pairs make the two-view geometry (and
+        # the BA gauge, which freezes both init cameras) ill-conditioned.
+        fa, fb = _init_pair(tix, uv_of)
     if poses_init is not None:
         # REFINE mode: rebuild the map from the given poses, frame by frame,
         # then FALL THROUGH to the incremental loop (frames the base run
@@ -624,50 +794,12 @@ def run_sfm_from_matches(
         for f in sorted(registered_init or range(n_frames)):
             registered.append(f)
             if len(registered) >= 2:
-                _triangulate_new(f, track_obs, track_point, points, poses, registered,
-                                 uv_of, k, device=dev)
+                with profiling.span("sfm.triangulate"):
+                    _triangulate_new(f, tix, track_point, points, poses, registered,
+                                     uv_of, k, device=dev)
     else:
-        init_pairs = shared.get((fa, fb), [
-            (t, dict(g)) for t, g in enumerate(track_obs)
-            if fa in dict(g) and fb in dict(g)
-        ])
-        cap = max(64, 1 << int(np.ceil(np.log2(max(len(init_pairs), 2)))))
-        p1 = np.zeros((cap, 2))
-        p2 = np.zeros((cap, 2))
-        valid = np.zeros(cap, bool)
-        init_track_ids = np.full(cap, -1, np.int64)
-        for n, (t, g) in enumerate(init_pairs[:cap]):
-            p1[n] = _normalize(uv_of(fa, g[fa]), k)
-            p2[n] = _normalize(uv_of(fb, g[fb]), k)
-            valid[n] = True
-            init_track_ids[n] = t
-
-        p1_t, p2_t = _f32(p1, dev), _f32(p2, dev)
-        e, inl, _ = ransac_essential(p1_t, p2_t, torch.as_tensor(valid, device=dev),
-                                     1024, 2e-3, seed)
-        r2, t2, front = recover_pose(e, p1_t, p2_t, inl)
-        eye = torch.eye(3, dtype=torch.float32, device=dev)
-        x0 = triangulate(p1_t, p2_t, eye, torch.zeros(3, dtype=torch.float32, device=dev),
-                         r2, t2)
-        front = front.cpu().numpy()
-        x0 = x0.cpu().numpy().astype(np.float64)
-
-        poses = np.zeros((n_frames, 6))
-        registered = [fa, fb]
-        r2n = r2.cpu().numpy().astype(np.float64)
-        cos = np.clip((np.trace(r2n) - 1) / 2, -1, 1)
-        theta = np.arccos(cos)
-        axis = np.array([r2n[2, 1] - r2n[1, 2], r2n[0, 2] - r2n[2, 0], r2n[1, 0] - r2n[0, 1]])
-        axis = axis / max(np.linalg.norm(axis), 1e-12)
-        poses[fb, :3] = axis * theta
-        poses[fb, 3:] = t2.cpu().numpy().astype(np.float64)
-
-        track_point = np.full(n_tracks, -1, np.int64)
-        points = []
-        for n in range(cap):
-            if front[n] and init_track_ids[n] >= 0:
-                track_point[init_track_ids[n]] = len(points)
-                points.append(x0[n])
+        with profiling.span("sfm.init"):
+            poses, registered, track_point, points = _initialize(tix, fa, fb, k, seed, dev)
 
     # ---- incremental registration ----
     # Register remaining frames most-constrained-first (greedy by current
@@ -682,28 +814,78 @@ def run_sfm_from_matches(
         retry = False
         deferred = []
         while remaining:
-            counts = _candidate_counts(remaining, track_obs, track_point)
-            f = max(remaining, key=lambda x: counts[x])
-            remaining.remove(f)
-            if not _register_frame(f, track_obs, track_point, points, poses, registered,
-                                   uv_of, k, seed, device=dev):
+            with profiling.span("sfm.tracks"):
+                counts = _candidate_counts(remaining, tix)
+                f = max(remaining, key=lambda x: counts[x])
+                remaining.remove(f)
+            with profiling.span("sfm.register"):
+                ok = _register_frame(f, tix, track_point, points, poses, registered, k, seed,
+                                     device=dev)
+            if not ok:
                 deferred.append(f)
                 continue
             retry = True
-            _triangulate_new(f, track_obs, track_point, points, poses, registered, uv_of, k,
-                             device=dev)
+            with profiling.span("sfm.triangulate"):
+                _triangulate_new(f, tix, track_point, points, poses, registered, uv_of, k,
+                                 device=dev)
             if (windowed_ba_every and len(registered) % windowed_ba_every == 0
                     and len(points) >= 8):
                 poses, points = _ba_pass(
-                    n_frames, poses, points, track_obs, track_point, registered,
+                    n_frames, poses, points, tix, track_point, registered,
                     fa, fb, fxy, cxy, uv_of, max(ba_iters // 3, 5), device=dev,
                 )
         remaining = deferred
 
     return _finish_global_ba(
-        n_frames, poses, points, track_obs, track_point, registered,
+        n_frames, poses, points, tix, track_point, registered,
         fa, fb, fxy, cxy, uv_of, ba_iters, prune_px, n_tracks, device=dev,
     )
+
+
+def _initialize(tix, fa, fb, k, seed, dev):
+    """Two-view initialization on frames ``fa``, ``fb`` from the tracks they
+    share (in track order): essential-matrix RANSAC, pose recovery and
+    triangulation.  Returns (poses, registered, track_point, points)."""
+    n_frames = tix.n_frames
+    init_ts = np.nonzero((tix.row[:, fa] >= 0) & (tix.row[:, fb] >= 0))[0]
+    cap = max(64, 1 << int(np.ceil(np.log2(max(len(init_ts), 2)))))
+    p1 = np.zeros((cap, 2))
+    p2 = np.zeros((cap, 2))
+    valid = np.zeros(cap, bool)
+    init_track_ids = np.full(cap, -1, np.int64)
+    n = len(init_ts)
+    p1[:n] = _normalize(tix.obs_uv[tix.row[init_ts, fa]], k)
+    p2[:n] = _normalize(tix.obs_uv[tix.row[init_ts, fb]], k)
+    valid[:n] = True
+    init_track_ids[:n] = init_ts
+
+    p1_t, p2_t = _f32(p1, dev), _f32(p2, dev)
+    profiling.count("sfm.ransac_lanes", RANSAC_HYPOTHESES * cap)
+    e, inl, _ = ransac_essential(p1_t, p2_t, _mask(valid, dev), RANSAC_HYPOTHESES, 2e-3, seed)
+    r2, t2, front = recover_pose(e, p1_t, p2_t, inl)
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    x0 = triangulate(p1_t, p2_t, eye, torch.zeros(3, dtype=torch.float32, device=dev),
+                     r2, t2)
+    front = _host(front, "init")
+    x0 = _host(x0, "init").astype(np.float64)
+
+    poses = np.zeros((n_frames, 6))
+    r2n = _host(r2, "init").astype(np.float64)
+    cos = np.clip((np.trace(r2n) - 1) / 2, -1, 1)
+    theta = np.arccos(cos)
+    axis = np.array([r2n[2, 1] - r2n[1, 2], r2n[0, 2] - r2n[2, 0], r2n[1, 0] - r2n[0, 1]])
+    axis = axis / max(np.linalg.norm(axis), 1e-12)
+    poses[fb, :3] = axis * theta
+    poses[fb, 3:] = _host(t2, "init").astype(np.float64)
+
+    track_point = np.full(len(tix), -1, np.int64)
+    points = []
+    for n in range(cap):
+        if front[n] and init_track_ids[n] >= 0:
+            track_point[init_track_ids[n]] = len(points)
+            points.append(x0[n])
+    tix.gained(np.nonzero(track_point >= 0)[0])
+    return poses, [fa, fb], track_point, points
 
 
 def _finish_global_ba(
@@ -714,7 +896,8 @@ def _finish_global_ba(
     stage of run_sfm_from_matches, shared with the refine-mode flow)."""
     dev = resolve_device(device)
     pts = np.asarray(points) if points else np.zeros((0, 3))
-    obs_cam, obs_pt, obs_uv = _observations(track_obs, track_point, registered, uv_of)
+    with profiling.span("sfm.tracks"):
+        obs_cam, obs_pt, obs_uv = _observations(track_obs, track_point, registered)
 
     info = {"n_tracks": n_tracks, "n_points": len(pts), "n_obs": len(obs_cam),
             "registered": sorted(registered)}
@@ -726,22 +909,24 @@ def _finish_global_ba(
         # Huber delta = the prune threshold: outliers beyond it get
         # linear weight instead of dragging the L2 solve into a wrong
         # minimum.
-        cams_opt, pts_opt, ba_info = ba_solve(pr, ba_iters, huber_delta=float(prune_px))
+        with profiling.span("sfm.ba"):
+            cams_opt, pts_opt, ba_info = ba_solve(pr, ba_iters, huber_delta=float(prune_px))
 
         # Outlier pruning + re-BA: mask observations whose reprojection error
         # after the first solve exceeds ``prune_px``, then re-optimize.
         r_obs, _ = _residuals(pr, cams_opt, pts_opt)
-        keep = torch.linalg.vector_norm(r_obs, dim=-1).cpu().numpy() < prune_px
+        keep = _host(torch.linalg.vector_norm(r_obs, dim=-1), "prune") < prune_px
         info["pruned_obs"] = int((~keep).sum())
         if 0 < info["pruned_obs"] < 0.5 * len(keep):
             pr = dataclasses.replace(pr, cams=cams_opt, points=pts_opt,
-                                     obs_mask=torch.as_tensor(keep, device=dev))
-            cams_opt, pts_opt, ba_info2 = ba_solve(pr, max(ba_iters // 2, 5),
-                                                   huber_delta=float(prune_px))
+                                     obs_mask=_mask(keep, dev))
+            with profiling.span("sfm.ba"):
+                cams_opt, pts_opt, ba_info2 = ba_solve(pr, max(ba_iters // 2, 5),
+                                                       huber_delta=float(prune_px))
             info["ba_reprune"] = ba_info2
 
-        poses = cams_opt.cpu().numpy().astype(np.float64)
-        pts = pts_opt.cpu().numpy().astype(np.float64)
+        poses = _host(cams_opt, "ba").astype(np.float64)
+        pts = _host(pts_opt, "ba").astype(np.float64)
         info["ba"] = ba_info
 
     return SfmResult(poses=poses, points=pts, track_point=track_point, info=info)
@@ -795,6 +980,11 @@ def run_sfm(images, intrinsics, cfg: SiftConfig | None = None, ba_iters: int = 2
     """Full SfM on an image sequence: detection + matching + incremental SfM,
     on the card unless ``device="cpu"``.
 
+    Each frame is detected alone (``detect_and_describe_batch`` at batch 1
+    with ``return_counts``); ``info["counts"]`` holds every frame's counts
+    in the entry point's layout (a batch of all the frames), which
+    ``models/sift.clipped`` reads.
+
     Matching covers a temporal window (i, i+k) for k <= ``match_window``:
     on dense sequences adjacent baselines are tiny, and skip pairs add
     wide-baseline constraints and merge tracks across the window.
@@ -809,16 +999,33 @@ def run_sfm(images, intrinsics, cfg: SiftConfig | None = None, ba_iters: int = 2
     floor); a healthy loop is returned untouched
     (``info["loop_closure_skipped"]``).
     """
-    dev = resolve_device(device)
-    cfg = cfg or SiftConfig()
-    kps = [detect_and_describe(img, cfg, device=dev) for img in images]
-    uvs = [torch.stack([kp.x, kp.y], -1).cpu().numpy() for kp in kps]
+    with profiling.span("sfm.run"):
+        out, counts = _run_sfm(images, intrinsics, cfg or SiftConfig(), ba_iters, match_window,
+                               loop_closure, resolve_device(device))
+    out.info["counts"] = counts
+    profiling.count("sfm.registered", len(out.info.get("registered", [])))
+    return out
+
+
+def _run_sfm(images, intrinsics, cfg, ba_iters, match_window, loop_closure, dev):
+    """``run_sfm``'s body: (result, counts)."""
+    with profiling.span("sfm.detect"):
+        kps, per_frame = [], []
+        for img in images:
+            img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img)
+            kp, c = detect_and_describe_batch(img[None], cfg, return_counts=True, device=dev)
+            kps.append(kp.map(lambda a: a[0]))
+            per_frame.append(c)
+        counts = {name: torch.cat([c[name].reshape(1, *c[name].shape[1:]) for c in per_frame])
+                  for name in per_frame[0]} if per_frame else {}
+        uvs = [_host(torch.stack([kp.x, kp.y], -1), "keypoints") for kp in kps]
 
     def match_pair(i, j):
-        idx, acc, _, _ = match_descriptors(kps[i].desc, kps[i].valid, kps[j].desc,
-                                           kps[j].valid, cfg.ratio_threshold, device=dev)
-        acc = acc.cpu().numpy()
-        idx = idx.cpu().numpy()
+        with profiling.span("sfm.match"):
+            idx, acc, _, _ = match_descriptors(kps[i].desc, kps[i].valid, kps[j].desc,
+                                               kps[j].valid, cfg.ratio_threshold, device=dev)
+            acc = _host(acc, "matches")
+            idx = _host(idx, "matches")
         rows = np.nonzero(acc)[0]
         return np.stack([rows, idx[rows]], axis=-1)
 
@@ -829,21 +1036,28 @@ def run_sfm(images, intrinsics, cfg: SiftConfig | None = None, ba_iters: int = 2
 
     base = run_sfm_from_matches(uvs, dict(pair_matches), intrinsics, ba_iters, device=dev)
     if not (loop_closure and len(images) > 2 * (match_window + 1)):
-        return base
+        return base, counts
+    with profiling.span("sfm.loop_closure"):
+        return _loop_closure(base, kps, uvs, pair_matches, match_pair, intrinsics, ba_iters,
+                             match_window, len(images), dev), counts
 
+
+def _loop_closure(base, kps, uvs, pair_matches, match_pair, intrinsics, ba_iters,
+                  match_window, n_images, dev) -> SfmResult:
+    """``run_sfm``'s gated loop-closure repair of the base solve ``base``."""
     # Pose-prior-gated loop closure: a candidate is accepted only when its
     # two estimated camera centers are already near each other relative to
     # the trajectory length (retrieval alone cannot tell a revisit from
     # perceptual aliasing: periodic texture displaced by whole periods).
-    reg = base.info.get("registered", list(range(len(images))))
-    rmats = rodrigues(_f32(base.poses[:, :3], dev)).cpu().numpy()
+    reg = base.info.get("registered", list(range(n_images)))
+    rmats = _host(rodrigues(_f32(base.poses[:, :3], dev)), "rotation")
     centers = -np.einsum("nij,nj->ni", rmats.transpose(0, 2, 1), base.poses[:, 3:])
     reg_sorted = sorted(reg)
     path = float(sum(np.linalg.norm(centers[b] - centers[a])
                      for a, b in zip(reg_sorted, reg_sorted[1:])))
     if path <= 0:
         return base
-    descs = [kp.desc[kp.valid].cpu().numpy() for kp in kps]
+    descs = [_host(kp.desc[kp.valid], "descriptors") for kp in kps]
     reg_set = set(reg)
     closures = []
     deferred = []
@@ -883,7 +1097,7 @@ def run_sfm(images, intrinsics, cfg: SiftConfig | None = None, ba_iters: int = 2
     # solve: coverage holes, heavy outlier pruning, or closure-pair center
     # gaps materially above the noise floor.
     distressed = (
-        len(reg) < len(images)
+        len(reg) < n_images
         or base.info.get("pruned_obs", 0) > 0.02 * max(base.info.get("n_obs", 1), 1)
         or float(np.median(gaps)) > 0.02 * path
     )
@@ -895,9 +1109,10 @@ def run_sfm(images, intrinsics, cfg: SiftConfig | None = None, ba_iters: int = 2
     # second pass) and as track merges; the second pass re-verifies every
     # pair, triangulates from the relaxed poses, registers the frames the
     # base run missed, and runs the Huber BA + prune.
+    profiling.count("sfm.loop_repairs", 1)
     poses_pgo = pose_graph_relax(base.poses, reg, closures)
     poses_pgo, filled = _fill_unregistered_by_interpolation(
-        poses_pgo, sorted(reg), len(images), max_dist=8, device=dev)
+        poses_pgo, sorted(reg), n_images, max_dist=8, device=dev)
     out = run_sfm_from_matches(uvs, pair_matches, intrinsics, ba_iters,
                                poses_init=poses_pgo,
                                registered_init=sorted(set(reg) | set(filled)), device=dev)

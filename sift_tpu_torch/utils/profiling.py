@@ -20,7 +20,17 @@ function and ``sift.sync.<kind>`` around each point where the host waits
 for the card (``upload``, ``table``, ``lanes``, ``classes``); the stitching
 slice's are ``stitch.<stage>`` and ``stitch.sync.<kind>`` (``models/stitch``,
 ``models/blend``), and the shared solver's ``geometry.sync.eigh``
-(``models/geometry``).
+(``models/geometry``).  The SfM slice (``models/sfm``) marks ``sfm.run`` >
+``sfm.detect``, ``sfm.match``, ``sfm.verify``, ``sfm.tracks`` (host-only
+bookkeeping), ``sfm.init``, ``sfm.register``, ``sfm.triangulate``, ``sfm.ba``
+(each ``ba_solve``) and ``sfm.loop_closure``, its host waits
+``sfm.sync.<kind>`` (``upload``, ``keypoints``, ``matches``, ``verify``,
+``init``, ``pnp``, ``rotation``, ``triangulate``, ``ba``, ``prune``,
+``descriptors``), and ``models/ba``'s cost read ``ba.sync.cost``; it counts
+``sfm.tracks``, ``sfm.registered``, ``sfm.ransac_lanes`` (hypotheses x
+lanes a RANSAC: essential, homography and PnP alike), ``sfm.loop_repairs``
+(the drift gate's refine passes), ``ba.iterations``, ``ba.observations``
+and ``ba.points``.
 """
 
 from __future__ import annotations

@@ -314,3 +314,182 @@ def test_ba_pass_matches_jax():
     assert np.abs(got_c[2:7] - cams[2:7]).max() > 1e-3  # the pass moved the free cameras
     np.testing.assert_allclose(got_c, want_c, rtol=0, atol=1e-3)
     np.testing.assert_allclose(np.asarray(got_p), np.asarray(want_p), rtol=0, atol=1e-3)
+
+
+# ---- the per-frame track index against the JAX package's loops ----------
+
+def _track_graph(seed, n_frames=48, n_tracks=2000):
+    """A seeded random track graph: each track 2-12 distinct frames around a
+    random start (every frame's features a permutation of its ids), float32
+    pixels per feature, points on about half the tracks, 30 frames
+    registered in a random order."""
+    rng = np.random.default_rng(seed)
+    per_frame = [0] * n_frames
+    tracks = []
+    for _ in range(n_tracks):
+        n = int(rng.integers(2, 13))
+        lo = int(rng.integers(0, n_frames - n + 1))
+        frames = sorted(rng.choice(np.arange(lo, min(n_frames, lo + 2 * n)), n, replace=False))
+        g = []
+        for f in frames:
+            g.append((int(f), per_frame[f]))
+            per_frame[f] += 1
+        tracks.append(g)
+    perm = [rng.permutation(n) for n in per_frame]
+    track_obs = [sorted((f, int(perm[f][x])) for f, x in g) for g in tracks]
+    uvs = [rng.uniform([0, 0], [640, 480], (n, 2)).astype(np.float32) for n in per_frame]
+    track_point = np.where(rng.uniform(size=n_tracks) < 0.5,
+                           rng.permutation(n_tracks), -1).astype(np.int64)
+    registered = [int(f) for f in rng.permutation(n_frames)[:30]]
+    return track_obs, uvs, track_point, registered
+
+
+def _jax_candidate_counts(track_obs, track_point, remaining):
+    # sift_tpu/models/sfm.py:749-754 (run_sfm_from_matches)
+    counts = {}
+    for f in remaining:
+        counts[f] = sum(
+            1 for t, g in enumerate(track_obs)
+            if track_point[t] >= 0 and f in dict(g)
+        )
+    return counts
+
+
+def _jax_pnp_candidates(track_obs, track_point, f):
+    # sift_tpu/models/sfm.py:260-264 (_register_frame)
+    cands = []
+    for t, g in enumerate(track_obs):
+        gd = dict(g)
+        if f in gd and track_point[t] >= 0:
+            cands.append((t, gd[f]))
+    return cands
+
+
+def _jax_partners(track_obs, track_point, registered, uv_of, f):
+    # sift_tpu/models/sfm.py:302-315 (_triangulate_new)
+    new = []
+    for t, g in enumerate(track_obs):
+        gd = dict(g)
+        if track_point[t] < 0 and f in gd:
+            best_pf, best_d = -1, 0.0
+            for rf in registered[:-1]:
+                if rf not in gd:
+                    continue
+                d = float(np.linalg.norm(uv_of(rf, gd[rf]) - uv_of(f, gd[f])))
+                if d > best_d:
+                    best_pf, best_d = rf, d
+            if best_pf >= 0 and best_d >= 0.75:
+                new.append((t, best_pf, gd[best_pf], gd[f]))
+    return new
+
+
+def _jax_observations(track_obs, track_point, registered, uv_of):
+    # sift_tpu/models/sfm.py:789-801 (_finish_global_ba; _ba_pass, 210-224,
+    # is the same loop over set(registered))
+    obs_cam, obs_pt, obs_uv = [], [], []
+    for t, g in enumerate(track_obs):
+        pid = track_point[t]
+        if pid < 0:
+            continue
+        for f, feat in g:
+            if f in registered:
+                obs_cam.append(f)
+                obs_pt.append(pid)
+                obs_uv.append(uv_of(f, feat))
+    return (np.asarray(obs_cam, np.int32), np.asarray(obs_pt, np.int32),
+            np.asarray(obs_uv, np.float64))
+
+
+def _jax_init_pair(track_obs, uv_of, n_frames):
+    # sift_tpu/models/sfm.py:644-662 (run_sfm_from_matches)
+    shared: dict[tuple[int, int], list] = {}
+    for t, g in enumerate(track_obs):
+        gd = dict(g)
+        fs = sorted(gd)
+        for ai in range(len(fs)):
+            for bi in range(ai + 1, len(fs)):
+                shared.setdefault((fs[ai], fs[bi]), []).append((t, gd))
+    best_score = -1.0
+    fa, fb = 0, min(1, n_frames - 1)
+    for (i, j), lst in shared.items():
+        if len(lst) < 16:
+            continue
+        disp = np.median(
+            [np.linalg.norm(uv_of(i, gd[i]) - uv_of(j, gd[j])) for t, gd in lst]
+        )
+        score = disp * np.sqrt(len(lst))
+        if score > best_score:
+            best_score = score
+            fa, fb = i, j
+    return fa, fb
+
+
+@pytest.mark.parametrize("what", ["counts", "pnp", "partners", "observations", "init_pair"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_track_index_matches_the_jax_loops(seed, what):
+    """The port's per-frame track index on a random 48-frame, 2000-track
+    graph against the JAX package's whole-track loops (copied above with
+    their line numbers): the same candidate counts (kept up to date as
+    tracks get points), PnP candidates in order, triangulation partners
+    (ties to the first in registration order), BA observation rows and
+    initial pair.  Tolerance: none."""
+    track_obs, uvs, track_point, registered = _track_graph(seed)
+    n_frames = len(uvs)
+
+    def uv_of(f, feat):
+        return uvs[f][feat]
+
+    tix = PF._TrackIndex(track_obs, n_frames, keypoints_uv=uvs)
+    assert list(tix) == track_obs
+    if what == "counts":
+        half = np.where(np.arange(len(track_point)) % 2 == 0, track_point, -1)
+        tix.gained(np.nonzero(half >= 0)[0])
+        assert PF._candidate_counts(range(n_frames), tix) == \
+            _jax_candidate_counts(track_obs, half, range(n_frames))
+        tix.gained(np.nonzero((track_point >= 0) & (half < 0))[0])
+        assert PF._candidate_counts(range(n_frames), tix) == \
+            _jax_candidate_counts(track_obs, track_point, range(n_frames))
+    elif what == "pnp":
+        for f in range(n_frames):
+            ts, rows = tix.candidates(f, track_point)
+            got = list(zip(ts.tolist(), tix.obs_feat[rows].tolist()))
+            assert got == _jax_pnp_candidates(track_obs, track_point, f), f
+    elif what == "partners":
+        for n, f in enumerate(registered[1:], 2):
+            reg = registered[:n]
+            got = [(t, pf, int(tix.obs_feat[a]), int(tix.obs_feat[b]))
+                   for t, pf, a, b in PF._partners(f, tix, track_point, reg, uv_of)]
+            assert got == _jax_partners(track_obs, track_point, reg, uv_of, f), f
+    elif what == "observations":
+        got = PF._observations(tix, track_point, registered)
+        want = _jax_observations(track_obs, track_point, registered, uv_of)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    else:
+        assert PF._init_pair(tix, uv_of) == _jax_init_pair(track_obs, uv_of, n_frames)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_track_groups_are_the_union_finds(seed):
+    """``_track_groups`` on random matches of 12 frames (pairs up to 3
+    apart, chains, merges across pairs and a few matches that put two
+    features of one frame in one track) is the JAX package's union-find
+    (``_Tracks``) as its ``run_sfm_from_matches`` keeps the groups
+    (``sift_tpu/models/sfm.py`` lines 627-634): the same tracks in the same
+    order.  Tolerance: none."""
+    rng = np.random.default_rng(seed)
+    pm = {}
+    for i in range(12):
+        for j in range(i + 1, min(i + 4, 12)):
+            n = int(rng.integers(0, 300))
+            pm[(i, j)] = np.stack([rng.integers(0, 400, n), rng.integers(0, 400, n)], 1)
+    tr = JF._Tracks()
+    for (i, j), m in pm.items():
+        for a, b in m:
+            tr.union((i, int(a)), (j, int(b)))
+    for min_len in (2, 3):
+        want = [sorted(g) for g in tr.groups()
+                if len(g) >= min_len and len({f for f, _ in g}) == len(g)]
+        assert PF._track_groups(pm, min_len) == want
+    assert PF._track_groups({}, 2) == []

@@ -120,3 +120,24 @@ def test_run_sfm_on_rendered_sequence():
     ate = np.sqrt(((scaled - gt) ** 2).sum(axis=1).mean())
     span = np.linalg.norm(gt[-1] - gt[0])
     assert ate < 0.15 * span, (ate, span, scaled[:, 0])
+
+
+def test_run_sfm_reports_each_frames_detection_counts():
+    """``run_sfm(device="cpu")`` on the 6-frame sequence returns in
+    ``info["counts"]`` every frame's detection counts in the entry point's
+    layout: those of ``detect_and_describe_batch(..., return_counts=True)``
+    on the six frames as one batch.  Tolerance: none."""
+    from sift_tpu_torch.models.sift import clipped, detect_and_describe_batch
+
+    frames, _ = EV.render_sequence(EV.texture())
+    cfg = SiftConfig(**chip_smoke.SFM_CAPS)
+    res = PF.run_sfm(frames, np.array(chip_smoke.SFM_K), cfg, ba_iters=1, loop_closure=False,
+                     device="cpu")
+    _, want = detect_and_describe_batch(np.stack(frames), cfg, return_counts=True, device="cpu")
+    got = res.info["counts"]
+    assert sorted(got) == sorted(want)
+    for name in want:
+        got_n = got[name].reshape(len(frames), -1) if want[name].dim() else got[name].max()
+        want_n = want[name].reshape(len(frames), -1) if want[name].dim() else want[name]
+        np.testing.assert_array_equal(got_n.numpy(), want_n.numpy(), err_msg=name)
+    assert clipped(got, cfg) == clipped(want, cfg)
