@@ -23,6 +23,13 @@ from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import device_const
 
 
+# Matrices one ``eigh`` call takes at most: cuSOLVER's batched syev (torch
+# 2.11, CUDA 12.8, H100) refuses more than 29,586 9 x 9 matrices (31,291 of
+# 4 x 4, 28,631 of 12 x 12) with CUSOLVER_STATUS_INVALID_VALUE; in batches
+# of up to 16,384 each matrix gets the bits it gets in a batch of 1,024.
+EIGH_BATCH = 16384
+
+
 def min_eigvec(a: torch.Tensor) -> torch.Tensor:
     """Least-squares null vector of (..., M, D) via the D x D normal
     equations and ``eigh``: the eigenvector of the smallest eigenvalue, the
@@ -31,11 +38,17 @@ def min_eigvec(a: torch.Tensor) -> torch.Tensor:
     The normal matrix is a sum of elementwise products, not a BLAS product
     (see the module docstring).  On the card ``eigh`` reads its solver's
     status to the host, a wait marked ``geometry.sync.eigh`` (the stitching
-    refit's, and the SfM solves' through this function).
+    refit's, and the SfM solves' through this function): one for every
+    ``EIGH_BATCH`` matrices.
     """
     ata = (a[..., :, :, None] * a[..., :, None, :]).sum(-3)
-    with profiling.span("geometry.sync.eigh"):
-        _, vecs = torch.linalg.eigh(ata)
+    n = ata[..., 0, 0].numel()
+    parts = [ata] if n <= EIGH_BATCH else ata.reshape(n, *ata.shape[-2:]).split(EIGH_BATCH)
+    vecs = []
+    for part in parts:
+        with profiling.span("geometry.sync.eigh"):
+            vecs.append(torch.linalg.eigh(part)[1])
+    vecs = vecs[0] if len(vecs) == 1 else torch.cat(vecs).view(ata.shape)
     return vecs[..., :, 0]
 
 
@@ -168,10 +181,28 @@ def sample_choice(valid: torch.Tensor, num_hypotheses: int, m: int, seed: int = 
     return idx.clamp(max=valid.shape[0] - 1)
 
 
-def _first_max(counts: torch.Tensor) -> torch.Tensor:
-    """(1,) index of the first maximum (``jnp.argmax``'s rule), kept on the
-    device: indexing by a 0-dim tensor would read it to the host."""
-    return torch.argmax(counts).view(1)
+def first_max(counts: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum over the last axis (``jnp.argmax``'s
+    rule), kept on the device: (1,) of (K,), (P, 1) of (P, K).  Indexing by
+    a 0-dim tensor would read it to the host."""
+    return torch.argmax(counts, -1, keepdim=True)
+
+
+def pick(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """Hypothesis ``best`` (``first_max``'s) of ``x`` (K, ...), or each
+    pair's of ``x`` (P, K, ...), on the device."""
+    if best.dim() == 1:
+        return x.index_select(0, best)[0]
+    return x[torch.arange(x.shape[0], device=x.device), best[:, 0]]
+
+
+def take_lanes(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The sampled lanes ``p[idx]``: p (N, D) by idx (K, m), or each pair's
+    p (P, N, D) by its idx (P, K, m); (..., K, m, D)."""
+    if p.dim() == 2:
+        return p[idx]
+    rows = torch.arange(p.shape[0], device=p.device).view(-1, *[1] * (idx.dim() - 1))
+    return p[rows, idx]
 
 
 def ransac_essential(p1, p2, valid, num_hypotheses: int = 1024,
@@ -185,23 +216,31 @@ def ransac_essential(p1, p2, valid, num_hypotheses: int = 1024,
 
 
 def ransac_essential_with_samples(p1, p2, valid, idx, inlier_threshold: float = 1e-3):
-    """``ransac_essential`` on given (K, 8) sample indices."""
-    e = _essential_from_8pt(p1[idx], p2[idx])
+    """``ransac_essential`` on given (K, 8) sample indices.
+
+    With a leading pair axis on every argument (p (P, N, 2), valid (P, N),
+    idx (P, K, 8)) it runs P RANSACs as one launch chain and returns
+    (P, 3, 3), (P, N), (P,): each pair's answer is what its own call
+    computes (bit for bit on the CPU; the card's batched solvers may round
+    a last bit otherwise).
+    """
+    e = _essential_from_8pt(take_lanes(p1, idx), take_lanes(p2, idx))  # (..., K, 3, 3)
     thr2 = inlier_threshold ** 2
-    inl = (_sampson_err2(e, p1, p2) < thr2) & valid[None, :]
-    counts = inl.sum(1)
-    best = _first_max(counts)
-    e_best = e.index_select(0, best)[0]
-    mask = inl.index_select(0, best)[0]
+    q1, q2 = p1[..., None, :, :], p2[..., None, :, :]
+    inl = (_sampson_err2(e, q1, q2) < thr2) & valid[..., None, :]
+    counts = inl.sum(-1)
+    best = first_max(counts)
+    e_best = pick(e, best)
+    mask = pick(inl, best)
 
     # Refit on all inliers (weighted 8-point over the full set).
-    a = _essential_rows(p1, p2) * mask.to(p1.dtype)[:, None]
-    e_ref = _project_essential(min_eigvec(a).reshape(3, 3))
-    inl_r = (_sampson_err2(e_ref[None], p1, p2)[0] < thr2) & valid
-    use_refit = inl_r.sum() >= counts.index_select(0, best)[0]
-    e_out = torch.where(use_refit, e_ref, e_best)
-    mask_out = torch.where(use_refit, inl_r, mask)
-    return e_out, mask_out, mask_out.sum()
+    a = _essential_rows(p1, p2) * mask.to(p1.dtype)[..., None]
+    e_ref = _project_essential(min_eigvec(a).reshape(*a.shape[:-2], 3, 3))
+    inl_r = (_sampson_err2(e_ref[..., None, :, :], q1, q2)[..., 0, :] < thr2) & valid
+    use_refit = inl_r.sum(-1) >= pick(counts, best)
+    e_out = torch.where(use_refit[..., None, None], e_ref, e_best)
+    mask_out = torch.where(use_refit[..., None], inl_r, mask)
+    return e_out, mask_out, mask_out.sum(-1)
 
 
 def recover_pose(e: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor):
@@ -233,7 +272,7 @@ def recover_pose(e: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, valid: tor
         z2 = mat_vecs(r, x)[:, 2] + t[2]
         fronts.append((x[:, 2] > 0) & (z2 > 0) & valid)
     fronts = torch.stack(fronts)
-    best = _first_max(fronts.sum(1))
+    best = first_max(fronts.sum(1))
     return rs.index_select(0, best)[0], ts.index_select(0, best)[0], fronts.index_select(0, best)[0]
 
 
@@ -282,6 +321,6 @@ def ransac_pnp_with_samples(pts3d, pts2d, valid, idx, inlier_threshold: float = 
     err2 = ((proj - pts2d[None]) ** 2).sum(-1)
     inl = (err2 < inlier_threshold ** 2) & (pc[..., 2] > 0) & valid[None, :]
     counts = inl.sum(1)
-    best = _first_max(counts)
+    best = first_max(counts)
     rvec = rotation_log(r.index_select(0, best)[0])
     return rvec, t.index_select(0, best)[0], inl.index_select(0, best)[0], counts.index_select(0, best)[0]

@@ -42,11 +42,13 @@ from sift_tpu_torch.models.ba import (
     ba_solve,
     build_obs_by_point,
 )
+from sift_tpu_torch.models import geometry
 from sift_tpu_torch.models.geometry import (
     _sampson_err2,
     mat_vecs,
     matmul3,
     ransac_essential,
+    ransac_essential_with_samples,
     ransac_pnp,
     recover_pose,
     rodrigues,
@@ -54,7 +56,7 @@ from sift_tpu_torch.models.geometry import (
 )
 from sift_tpu_torch.models.match import match_descriptors
 from sift_tpu_torch.models.sift import detect_and_describe_batch
-from sift_tpu_torch.models.stitch import _apply_h, ransac_homography
+from sift_tpu_torch.models.stitch import _apply_h, ransac_with_samples
 from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import resolve_device
 
@@ -230,6 +232,24 @@ def _rot(rvecs, dev) -> np.ndarray:
     return _host(rodrigues(_f32(rvecs, dev)), "rotation").astype(np.float64)
 
 
+def _upload_parts(parts, dev) -> list[torch.Tensor]:
+    """Host arrays -> float32 views of one buffer on ``dev``, rounded to
+    nearest as ``_f32`` rounds, in one copy staged through pinned memory on
+    the card (one ``sfm.sync.upload`` span)."""
+    flat = np.concatenate([np.asarray(a, np.float32).ravel() for a in parts])
+    with _wait("upload", dev):
+        buf = torch.from_numpy(flat)
+        if torch.device(dev).type == "cuda":
+            buf = buf.pin_memory().to(dev, non_blocking=True)
+    ends = np.cumsum([0] + [a.size for a in parts]).tolist()
+    return [buf[lo:hi].view(a.shape) for a, lo, hi in zip(parts, ends, ends[1:])]
+
+
+# Pairs a launch chain takes at most: their (P, K, cap, 2) float32
+# intermediates stay under about 2 GB.
+_CHAIN_BYTES = 2 << 30
+
+
 def _geometric_verify(
     keypoints_uv, pair_matches, k, seed, thr: float = 2e-3, min_inl: int = 12,
     sigma_px: float = 1.0, keep_sigma: float = 2.0,
@@ -252,69 +272,102 @@ def _geometric_verify(
     skip straight to H: they are exactly H-modeled and E is maximally
     degenerate.  Both RANSACs run on ``device`` with the seed
     ``seed + 7 * i + j``.
+
+    The pairs are verified together: those of one lane count (``cap``)
+    share one upload and one launch chain a model (the RANSAC functions'
+    pair axis), and every pair's errors come back in one host read; each
+    pair's numbers are those of its own call (bit for bit on the CPU).
     """
     dev = resolve_device(device)
     f_mean = float(np.sqrt(k[0, 0] * k[1, 1]))
     sig2 = sigma_px * sigma_px
     lam1 = float(np.log(4.0))
-    out = {}
+    # Keep band: 2 sigma, decoupled from the RANSAC fit bands (the JAX
+    # package's calibration on its rendered evaluation).
+    keep2 = (keep_sigma * sigma_px) ** 2
+    kh = RANSAC_HYPOTHESES
+
+    # Host side: each pair's lanes, and whether it is near-static.
+    jobs, groups = {}, {}
     for (i, j), m in pair_matches.items():
         if len(m) < 16:
-            out[(i, j)] = m
             continue
         p1 = keypoints_uv[i][m[:, 0]]
         p2 = keypoints_uv[j][m[:, 1]]
         n_m = len(m)
         cap = max(64, 1 << int(np.ceil(np.log2(n_m))))
-        q1 = np.zeros((cap, 2))
-        q2 = np.zeros((cap, 2))
-        v = np.zeros(cap, bool)
-        q1[:n_m] = _normalize(p1, k)
-        q2[:n_m] = _normalize(p2, k)
-        v[:n_m] = True
-        u1 = np.zeros((cap, 2))
-        u2 = np.zeros((cap, 2))
-        u1[:n_m] = p1
-        u2[:n_m] = p2
-        v_t = _mask(v, dev)
+        # Revisited / static viewpoint: E is degenerate by construction, H
+        # is the exact model: no E fit and no GRIC.
+        static = bool(np.median(np.linalg.norm(p2 - p1, axis=1)) < 1.5)
+        jobs[(i, j)] = dict(p1=p1, p2=p2, n=n_m, static=static, seed=seed + 7 * i + j)
+        groups.setdefault(cap, []).append((i, j))
 
-        # Homography hypothesis (pixel space, 2 px inlier threshold).
-        u1_t = _f32(u1, dev)
-        profiling.count("sfm.ransac_lanes", RANSAC_HYPOTHESES * cap)
-        h_px, h_inl, _ = ransac_homography(u1_t, _f32(u2, dev), v_t, RANSAC_HYPOTHESES,
-                                           2.0 * sigma_px, seed + 7 * i + j)
-        proj = _host(_apply_h(h_px, u1_t), "verify")
-        err2_h = ((proj[:n_m] - u2[:n_m]) ** 2).sum(1)
-        # Keep band: 2 sigma, decoupled from the RANSAC fit bands (the JAX
-        # package's calibration on its rendered evaluation).
-        keep2 = (keep_sigma * sigma_px) ** 2
+    # One upload a lane count, then one launch chain a model and chunk: the
+    # pairs that fit E first, so they are a leading slice of the stack.
+    reads = []
+    for cap, keys in groups.items():
+        keys.sort(key=lambda key: jobs[key]["static"])
+        n_e = sum(not jobs[key]["static"] for key in keys)
+        u1, u2, q1, q2 = np.zeros((4, len(keys), cap, 2))
+        v = np.zeros((len(keys), cap))
+        for r, key in enumerate(keys):
+            job, n_m = jobs[key], jobs[key]["n"]
+            u1[r, :n_m], u2[r, :n_m] = job["p1"], job["p2"]
+            q1[r, :n_m], q2[r, :n_m] = _normalize(job["p1"], k), _normalize(job["p2"], k)
+            v[r, :n_m] = 1.0
+        u1_t, u2_t, q1_t, q2_t, v_t = _upload_parts([u1, u2, q1, q2, v], dev)
+        v_t = v_t > 0
+        step = max(1, _CHAIN_BYTES // (kh * cap * 2 * 4))
+        for lo in range(0, len(keys), step):
+            hi = min(lo + step, len(keys))
+            e_hi = max(lo, min(hi, n_e))
+            chain = _verify_chain([jobs[key]["seed"] for key in keys[lo:hi]], u1_t[lo:hi],
+                                  u2_t[lo:hi], q1_t[lo:e_hi], q2_t[lo:e_hi], v_t[lo:hi], thr,
+                                  sigma_px, stats is not None)
+            reads.append((keys[lo:hi], chain))
 
-        disp = np.median(np.linalg.norm(p2 - p1, axis=1))
-        if disp < 1.5:
-            # Revisited / static viewpoint: E is degenerate by construction,
-            # H is the exact model: skip the E fit and its GRIC.
+    # One host read of every pair's errors (and inlier counts), then GRIC
+    # and the keep bands per pair on the host.
+    if reads:
+        parts = [t for _, chain in reads for t in chain]
+        flat = _host(torch.cat([t.reshape(-1).to(torch.float32) for t in parts]), "verify")
+        pieces = iter(np.split(flat, np.cumsum([t.numel() for t in parts])[:-1]))
+        for keys, chain in reads:
+            proj, err_e, *counts = (next(pieces).reshape(t.shape) for t in chain)
+            for r, key in enumerate(keys):
+                job = jobs[key]
+                n_m = job["n"]
+                job["err2_h"] = ((proj[r, :n_m] - job["p2"].astype(np.float64)) ** 2).sum(1)
+                if r < len(err_e):
+                    job["err2_e"] = err_e[r, :n_m] * (f_mean * f_mean)
+                if counts:
+                    job["h_inl"] = int(counts[0][r])
+                    job["e_inl"] = int(counts[1][r]) if r < len(err_e) else None
+
+    out = {}
+    for key, m in pair_matches.items():
+        job = jobs.get(key)
+        if job is None:
+            out[key] = m
+            continue
+        err2_h = job["err2_h"]
+        if job["static"]:
             keep = err2_h < keep2
             if int(keep.sum()) >= min_inl:
-                out[(i, j)] = m[keep]
+                out[key] = m[keep]
             continue
-
-        q1_t, q2_t = _f32(q1, dev), _f32(q2, dev)
-        profiling.count("sfm.ransac_lanes", RANSAC_HYPOTHESES * cap)
-        e, e_inl, _ = ransac_essential(q1_t, q2_t, v_t, RANSAC_HYPOTHESES, thr, seed + 7 * i + j)
         # Sampson distance in normalized units -> px^2 via the mean focal.
-        err2_e = _host(_sampson_err2(e[None], q1_t, q2_t), "verify")[0][:n_m] * (f_mean * f_mean)
-
+        err2_e, n_m = job["err2_e"], job["n"]
         lam2 = float(np.log(4.0 * n_m))
         gric_e = (np.minimum(err2_e / sig2, 2.0 * (4 - 3)).sum()
                   + lam1 * 3 * n_m + lam2 * 5)
         gric_h = (np.minimum(err2_h / sig2, 2.0 * (4 - 2)).sum()
                   + lam1 * 2 * n_m + lam2 * 8)
         if stats is not None:
-            stats[(i, j)] = dict(
+            stats[key] = dict(
                 model=("H" if gric_h < gric_e else "E"),
                 gric_e=float(gric_e), gric_h=float(gric_h), n=n_m,
-                e_inl=int(_host(e_inl, "verify")[:n_m].sum()),
-                h_inl=int(_host(h_inl, "verify")[:n_m].sum()),
+                e_inl=job["e_inl"], h_inl=job["h_inl"],
             )
         # The UNION of both models' keep bands: each model has structure
         # the other cannot represent (H: off-plane parallax; E: planar or
@@ -322,9 +375,32 @@ def _geometric_verify(
         # outside both.
         keep = (err2_e < keep2) | (err2_h < keep2)
         if int(keep.sum()) >= min_inl:
-            out[(i, j)] = m[keep]
+            out[key] = m[keep]
         # else: drop the pair entirely (no consistent geometry)
     return out
+
+
+def _verify_chain(seeds, u1, u2, q1, q2, v, thr, sigma_px, counts):
+    """One launch chain a model over a stack of pairs of one lane count:
+    the homography RANSAC over all of them (pixel space, 2 px), the
+    essential RANSAC over the first ``len(q1)`` (normalized space, ``thr``),
+    each pair on its own draws (``geometry.sample_choice`` at its seed,
+    looked up at the call).  Returns the device tensors to read: the
+    projections of ``u1`` through each H, each E's Sampson errors, and with
+    ``counts`` both models' inlier counts."""
+    kh, cap, n_e = RANSAC_HYPOTHESES, u1.shape[1], len(q1)
+    profiling.count("sfm.verify_pairs", len(seeds))
+    profiling.count("sfm.verify_chains", 1 + (n_e > 0))
+    profiling.count("sfm.ransac_lanes", (len(seeds) + n_e) * kh * cap)
+    idx_h = torch.stack([geometry.sample_choice(v[r], kh, 4, s) for r, s in enumerate(seeds)])
+    h, _, h_cnt = ransac_with_samples(u1, u2, v, idx_h, 2.0 * sigma_px)
+    err_e, e_cnt = u1.new_zeros((0, cap)), h_cnt[:0]
+    if n_e:
+        idx_e = torch.stack([geometry.sample_choice(v[r], kh, 8, s)
+                             for r, s in enumerate(seeds[:n_e])])
+        e, _, e_cnt = ransac_essential_with_samples(q1, q2, v[:n_e], idx_e, thr)
+        err_e = _sampson_err2(e, q1, q2)
+    return [_apply_h(h, u1), err_e] + ([h_cnt, e_cnt] if counts else [])
 
 
 def _observations(tix, track_point, registered):

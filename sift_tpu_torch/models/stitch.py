@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.models import geometry
-from sift_tpu_torch.models.geometry import matmul3, min_eigvec
+from sift_tpu_torch.models.geometry import first_max, matmul3, min_eigvec, pick, take_lanes
 from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.numerics import resolve_device, to_i32, xdiv
 
@@ -112,18 +112,19 @@ def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int, seed: int = 0) -
 
 
 def _normalize(p: torch.Tensor, vf: torch.Tensor, nvalid: torch.Tensor):
-    """Hartley normalization over the valid lanes: (p', T) with p' = T p."""
-    mean = (p * vf).sum(0) / nvalid
-    d = torch.sqrt(((p - mean) ** 2).sum(1))
-    spread = torch.clamp((d * vf[:, 0]).sum() / nvalid, min=1e-8)
+    """Hartley normalization over the valid lanes: (p', T) with p' = T p;
+    p (..., N, 2), vf (..., N, 1), nvalid (...)."""
+    mean = (p * vf).sum(-2) / nvalid[..., None]
+    d = torch.sqrt(((p - mean[..., None, :]) ** 2).sum(-1))
+    spread = torch.clamp((d * vf[..., 0]).sum(-1) / nvalid, min=1e-8)
     scale = torch.full_like(spread, math.sqrt(2.0)) / spread
     zero, one = torch.zeros_like(scale), torch.ones_like(scale)
     t = torch.stack([
-        torch.stack([scale, zero, -scale * mean[0]]),
-        torch.stack([zero, scale, -scale * mean[1]]),
-        torch.stack([zero, zero, one]),
-    ])
-    return (p - mean) * scale, t
+        torch.stack([scale, zero, -scale * mean[..., 0]], -1),
+        torch.stack([zero, scale, -scale * mean[..., 1]], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
+    return (p - mean[..., None, :]) * scale[..., None, None], t
 
 
 def ransac_homography(
@@ -147,46 +148,50 @@ def ransac_homography(
 
 
 def ransac_with_samples(pts1, pts2, valid, idx, inlier_threshold: float = 3.0):
-    """``ransac_homography`` on given (K, 4) sample indices."""
+    """``ransac_homography`` on given (K, 4) sample indices.
+
+    With a leading pair axis on every argument (pts (P, N, 2), valid
+    (P, N), idx (P, K, 4)) it runs P RANSACs as one launch chain and
+    returns (P, 3, 3), (P, N), (P,): each pair's answer is what its own
+    call computes (bit for bit on the CPU; the card's batched solvers may
+    round a last bit otherwise).
+    """
     dtype = pts1.dtype
-    nvalid = torch.clamp(valid.sum(), min=1).to(dtype)
-    vf = valid.to(dtype)[:, None]
+    nvalid = torch.clamp(valid.sum(-1), min=1).to(dtype)
+    vf = valid.to(dtype)[..., None]
     p1n, t1 = _normalize(pts1, vf, nvalid)
     p2n, t2 = _normalize(pts2, vf, nvalid)
 
-    h = _solve_h_4pt(p1n[idx], p2n[idx])  # (K, 3, 3), normalized space
+    h = _solve_h_4pt(take_lanes(p1n, idx), take_lanes(p2n, idx))  # (..., K, 3, 3), normalized
 
     # Inlier counting in pixel space: H_px = T2^-1 H T1.
     t2inv = torch.linalg.inv_ex(t2)[0]
-    h_px = matmul3(matmul3(t2inv, h), t1)
+    h_px = matmul3(matmul3(t2inv[..., None, :, :], h), t1[..., None, :, :])
     thr2 = inlier_threshold * inlier_threshold
-    proj = _apply_h(h_px, pts1[None])  # (K, N, 2)
-    err2 = ((proj - pts2[None]) ** 2).sum(-1)
-    inl = (err2 < thr2) & valid[None, :]
-    counts = inl.sum(1)
-    # The first maximum, as jnp.argmax; selected with ``index_select``, since
-    # indexing by a 0-dim tensor reads it to the host.
-    best = torch.argmax(counts).view(1)
-    inlier_mask = inl.index_select(0, best)[0]
+    proj = _apply_h(h_px, pts1[..., None, :, :])  # (..., K, N, 2)
+    err2 = ((proj - pts2[..., None, :, :]) ** 2).sum(-1)
+    inl = (err2 < thr2) & valid[..., None, :]
+    counts = inl.sum(-1)
+    best = first_max(counts)  # jnp.argmax's first maximum, kept on the device
+    inlier_mask = pick(inl, best)
 
     # Least-squares refit on the inliers (masked DLT rows).  The weights
     # repeat each lane's twice over rows ordered [r1 of every lane, r2 of
     # every lane], so row k takes lane k // 2's weight: the JAX package's
     # ``jnp.repeat``, kept for parity (ROADMAP.md, queue 3).
     w = inlier_mask.to(dtype)
-    a_all = _dlt_matrix(p1n, p2n) * w.repeat_interleave(2)[:, None]
+    a_all = _dlt_matrix(p1n, p2n) * w.repeat_interleave(2, -1)[..., None]
     h_ref_px = matmul3(matmul3(t2inv, _solve_h(a_all)), t1)
 
     # Fall back to the best sample hypothesis if the refit is worse.
-    proj_r = _apply_h(h_ref_px[None], pts1[None])[0]
-    err2_r = ((proj_r - pts2) ** 2).sum(-1)
+    err2_r = ((_apply_h(h_ref_px, pts1) - pts2) ** 2).sum(-1)
     inl_r = (err2_r < thr2) & valid
-    use_refit = inl_r.sum() >= counts.index_select(0, best)[0]
-    h_out = torch.where(use_refit, h_ref_px, h_px.index_select(0, best)[0])
-    inlier_out = torch.where(use_refit, inl_r, inlier_mask)
-    h33 = h_out[2, 2]
-    h_out = h_out / torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)
-    return h_out, inlier_out, inlier_out.sum()
+    use_refit = inl_r.sum(-1) >= pick(counts, best)
+    h_out = torch.where(use_refit[..., None, None], h_ref_px, pick(h_px, best))
+    inlier_out = torch.where(use_refit[..., None], inl_r, inlier_mask)
+    h33 = h_out[..., 2, 2]
+    h_out = h_out / torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)[..., None, None]
+    return h_out, inlier_out, inlier_out.sum(-1)
 
 
 # --------------------------------------------------------------------------

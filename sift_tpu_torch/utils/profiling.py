@@ -28,7 +28,10 @@ bookkeeping), ``sfm.init``, ``sfm.register``, ``sfm.triangulate``, ``sfm.ba``
 ``init``, ``pnp``, ``rotation``, ``triangulate``, ``ba``, ``prune``,
 ``descriptors``), and ``models/ba``'s cost read ``ba.sync.cost``; it counts
 ``sfm.tracks``, ``sfm.registered``, ``sfm.ransac_lanes`` (hypotheses x
-lanes a RANSAC: essential, homography and PnP alike), ``sfm.loop_repairs``
+lanes a RANSAC: essential, homography and PnP alike), ``sfm.verify_pairs``
+(pairs that went through the verification's RANSACs) and
+``sfm.verify_chains`` (its batched launch chains: one a lane count, chunk
+and model), ``sfm.loop_repairs``
 (the drift gate's refine passes), ``ba.iterations``, ``ba.observations``
 and ``ba.points``.
 """

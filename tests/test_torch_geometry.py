@@ -347,3 +347,58 @@ def test_sample_choice_reproducible_and_uniform_over_valid_lanes(m):
         assert torch.equal(a, PS.sample_hypotheses(valid, 8192, seed=5))
     # no valid lane: every index is the last lane
     assert PG.sample_choice(torch.zeros(7, dtype=torch.bool), 3, m).eq(6).all()
+
+
+def _stack(views):
+    """Per-pair (p1, p2, valid) padded with invalid zero lanes to one lane
+    count and stacked: (P, N, 2), (P, N, 2), (P, N)."""
+    n = max(len(v[0]) for v in views)
+
+    def pad(a):
+        return np.concatenate([a, np.zeros((n - len(a),) + a.shape[1:], a.dtype)])
+    return tuple(np.stack([pad(v[i]) for v in views]) for i in range(3))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("model", ["homography", "essential"])
+def test_ransac_pair_axis_equals_single_calls(model, dtype):
+    """``ransac_with_samples`` and ``ransac_essential_with_samples`` on a
+    (P, ...) stack of pairs (each its own geometry, outliers, invalid
+    lanes and draws) give each pair what its own call gives.  Tolerance:
+    none, bit for bit in the model, the inlier mask and the count."""
+    from test_torch_stitch import _correspondences
+
+    _, tdt, _, _ = DTYPES[dtype]
+    if model == "homography":
+        views = [_correspondences(seed=s, n=256, n_out=60 + 20 * s, n_invalid=10 + 15 * s)
+                 for s in range(4)]
+        fn, m, thr = PS.ransac_with_samples, 4, 3.0
+    else:
+        views = [two_view(n=200, n_out=30 + 10 * s, n_pad=8 * s, seed=s)[:3] for s in range(4)]
+        fn, m, thr = PG.ransac_essential_with_samples, 8, 2e-3
+    p1, p2, valid = _stack(views)
+    a, b, v = _t(p1, tdt), _t(p2, tdt), torch.from_numpy(valid)
+    idx = torch.stack([PG.sample_choice(v[i], 512, m, seed=11 + i) for i in range(len(views))])
+    got = fn(a, b, v, idx, thr)
+    assert [tuple(x.shape) for x in got] == [(4, 3, 3), tuple(v.shape), (4,)]
+    for i in range(len(views)):
+        one = fn(a[i], b[i], v[i], idx[i], thr)
+        assert int(one[2]) > 0
+        for g, w in zip(got, one):
+            assert torch.equal(g[i], w), (i, g[i], w)
+
+
+def test_min_eigvec_splits_large_batches(monkeypatch):
+    """Past ``EIGH_BATCH`` matrices ``min_eigvec`` solves them in parts (the
+    card's batched solver refuses larger batches), each matrix's vector the
+    one a single batch gives.  Tolerance: none."""
+    a = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 9000, 8, 9)))
+    whole = torch.linalg.eigh((a[..., :, :, None] * a[..., :, None, :]).sum(-3))[1][..., :, 0]
+    calls = []
+    eigh = torch.linalg.eigh
+    monkeypatch.setattr(torch.linalg, "eigh", lambda x: calls.append(x.shape[0]) or eigh(x))
+    got = PG.min_eigvec(a)
+    assert calls == [PG.EIGH_BATCH, 18000 - PG.EIGH_BATCH]
+    assert torch.equal(got, whole)
+    calls.clear()
+    assert torch.equal(PG.min_eigvec(a[0]), whole[0]) and calls == [9000]

@@ -12,6 +12,8 @@ states its tolerance.
 
 from __future__ import annotations
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 import sift_tpu.models.sfm as JF
 import sift_tpu_torch.models.geometry as PG
 import sift_tpu_torch.models.sfm as PF
+from sift_tpu_torch.utils import profiling
 from test_sfm import make_scene
 from test_sfm_verify import K, _project, _rot_y
 from test_torch_geometry import jax_draws
@@ -110,6 +113,103 @@ def test_geometric_verify_small_pairs_pass_through():
     m = np.stack([np.arange(10), np.arange(10)], 1)
     out = PF._geometric_verify([uv, uv + 5], {(0, 1): m}, K, seed=0, device="cpu")
     np.testing.assert_array_equal(out[(0, 1)], m)
+
+
+def _pairs_batch(copies=None):
+    """Pairs of ``_pair``'s geometries, shifted and rescaled copies, for one
+    call: ``(keypoints_uv, pair_matches)``.  By default six pairs at lane
+    counts 64, 128 and 256, among them a near-static pair and one of under
+    16 matches; with ``copies``, that many parallax pairs of 128 lanes."""
+    uvs, pm = [], {}
+    c = K[:2, 2]
+
+    def add(case, shift=(0.0, 0.0), scale=1.0, rows=slice(None), twice=False):
+        (a, b), m = _pair(case)
+        a, b = (c + scale * (x - c) + np.asarray(shift) for x in (a, b))
+        m = m[(0, 1)][rows]
+        if twice:  # a second, shrunken copy beside it: 240 matches
+            a, b = (np.concatenate([x, c + 0.6 * (x - c) + 40.0]) for x in (a, b))
+            m = np.concatenate([m, m + len(m)])
+        pm[(len(uvs), len(uvs) + 1)] = m
+        uvs.extend([a, b])
+
+    if copies:
+        for n in range(copies):
+            add("parallax", shift=(3.0 * n, -2.0 * n), scale=1.0 + 0.02 * n)
+        return uvs, pm
+    add("parallax")
+    add("planar", shift=(7.0, -4.0))
+    add("zero_baseline", scale=1.1)
+    add("parallax", scale=0.9, rows=slice(0, 50))
+    add("planar", twice=True)
+    add("parallax", rows=slice(0, 10))
+    return uvs, pm
+
+
+@pytest.fixture(scope="module")
+def verified_together():
+    uvs, pm = _pairs_batch()
+    stats = {}
+    return uvs, pm, PF._geometric_verify(uvs, pm, K, seed=3, stats=stats, device="cpu"), stats
+
+
+@pytest.mark.parametrize("pair", range(6))
+def test_geometric_verify_batch_matches_each_pair_alone(verified_together, pair):
+    """All pairs verified in one call (lane counts 64 / 128 / 256, a
+    near-static pair, one of under 16 matches) give each pair what it gets
+    verified alone: the kept matches, and with ``stats`` the model, GRIC
+    and both inlier counts.  Tolerance: matches and counts exact, GRIC 1e-6
+    relative."""
+    uvs, pm, together, stats = verified_together
+    key = list(pm)[pair]
+    one_stats = {}
+    alone = PF._geometric_verify(uvs, {key: pm[key]}, K, seed=3, stats=one_stats, device="cpu")
+    assert (key in together) == (key in alone)
+    if key in alone:
+        np.testing.assert_array_equal(together[key], alone[key])
+    assert (key in stats) == (key in one_stats)
+    if key in one_stats:
+        g, w = stats[key], one_stats[key]
+        assert (g["model"], g["n"], g["e_inl"], g["h_inl"]) == (w["model"], w["n"], w["e_inl"],
+                                                                 w["h_inl"])
+        for s in ("gric_e", "gric_h"):
+            assert g[s] == pytest.approx(w[s], rel=1e-6)
+    assert list(together) == [p for p in pm if p in together]  # the pairs' order kept
+
+
+def test_geometric_verify_waits_do_not_grow_with_pairs(monkeypatch):
+    """The verification's solver calls (``eigh``, ``svd``: each a status
+    read on the card), uploads and host reads are as many for 6 pairs of
+    one lane count as for 2; its counters show one chain a model shared
+    by every pair.  Tolerance: none."""
+    calls = collections.Counter()
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    for name in ("eigh", "svd"):
+        monkeypatch.setattr(torch.linalg, name, counted(name, getattr(torch.linalg, name)))
+    for name in ("_upload_parts", "_f32", "_mask", "_host"):
+        monkeypatch.setattr(PF, name, counted(name, getattr(PF, name)))
+
+    def run(n):
+        uvs, pm = _pairs_batch(copies=n)
+        calls.clear()
+        before = profiling.counters()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = PF._geometric_verify(uvs, pm, K, seed=3, device="cpu")
+        assert set(out) == set(pm)
+        after = profiling.counters()
+        return dict(calls), {c: after.get(c, 0) - before.get(c, 0)
+                             for c in ("sfm.verify_pairs", "sfm.verify_chains")}
+
+    (two, c2), (six, c6) = run(2), run(6)
+    assert two == six == {"eigh": 3, "svd": 2, "_upload_parts": 1, "_host": 1}, (two, six)
+    assert c2 == {"sfm.verify_pairs": 2, "sfm.verify_chains": 2}
+    assert c6 == {"sfm.verify_pairs": 6, "sfm.verify_chains": 2}
 
 
 def test_loop_closure_candidates_match_jax():
